@@ -1,0 +1,144 @@
+"""Where the PyTorch/CUDA port's main path spends its time on one CUDA card.
+
+    python tools/profile_torch_step.py [--frames 30]
+
+Renders the synthetic KITTI-00 feed (30 frames, 6000 landmarks, seed 0, as
+chip_smoke.py), stages it on the card and runs odometry.runner.run_sequence at
+the default PipelineConfig. Prints, with the card's name and power limit:
+
+- the untraced run: ms/frame and fps (host clock around a synchronised run);
+- the same run under torch.profiler: device busy ms/frame (sum of kernel and
+  copy times on the card; one stream, so they do not overlap), the device's
+  idle share (1 - busy / untraced wall), launches per frame, and the kernels
+  that take the most device time;
+- per stage of one 2-frame group (batched detection, each frame's _step_core,
+  each landmark insert): host time to enqueue, wall time to a synchronise,
+  device busy time and launches. Enqueue close to wall with little device time
+  means the stage is bound by launches from the host.
+
+The summary is also written as JSON to chiprun_out/profile_torch_step.json.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from vo_tpu_torch.config import PipelineConfig  # noqa: E402
+from vo_tpu_torch.frontend.sift import detect_and_describe  # noqa: E402
+from vo_tpu_torch.io import synthetic  # noqa: E402
+from vo_tpu_torch.odometry import landmarks, pipeline, runner  # noqa: E402
+
+
+def device_events(prof):
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def traced(fn, reps: int):
+    """(device busy ms, launches, {kernel name: ms}) per call of fn, from torch.profiler."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = device_events(prof)
+    by_name = collections.Counter()
+    for e in evs:
+        by_name[e.name] += e.time_range.elapsed_us() / 1000.0 / reps
+    return sum(by_name.values()), len(evs) / reps, by_name
+
+
+def host_times(fn, reps: int):
+    """(ms to enqueue, ms to a synchronise) per call of fn."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t_enq = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    return 1000.0 * t_enq / reps, 1000.0 * t_all / reps
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--frames", type=int, default=30)
+    ap.add_argument("--reps", type=int, default=10)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_step: needs a CUDA card", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    print(card)
+    cfg = PipelineConfig()
+    seq = synthetic.kitti_synthetic_sequence(n_frames=args.frames, n_landmarks=6000, seed=0)
+    feed = runner.StagedSequence(seq, args.frames, dev)
+
+    runner.run_sequence(feed, cfg, device=dev)  # warm: build, allocator, library handles
+    res = runner.run_sequence(feed, cfg, device=dev, warmup=False)
+    busy, launches, by_name = traced(lambda: runner.run_sequence(feed, cfg, device=dev, warmup=False), 1)
+    n = args.frames
+    summary = dict(
+        card=card,
+        frames=n,
+        wall_ms_per_frame=res.per_frame_ms,
+        fps=res.frames_per_sec,
+        device_busy_ms_per_frame=busy / n,
+        device_idle_share=1.0 - (busy / n) / res.per_frame_ms,
+        launches_per_frame=launches / n,
+        top_kernels_ms_per_frame={k: v / n for k, v in by_name.most_common(12)},
+    )
+    print(
+        f"main path: {res.per_frame_ms:.3f} ms/frame ({res.frames_per_sec:.2f} fps) untraced; device busy "
+        f"{busy / n:.3f} ms/frame, idle share {summary['device_idle_share']:.3f}, {launches / n:.0f} launches/frame"
+    )
+    for k, v in by_name.most_common(12):
+        print(f"  {v / n:8.4f} ms/frame  {k[:110]}")
+
+    # --- stages of one 2-frame group, from the state after frame 1 ---
+    calib = seq.calib.to(dev)
+    imgs = torch.stack([pipeline._normalize(im) for i in (2, 3) for im in feed.frame(i)])
+    state = pipeline.init_state(cfg, 0, dev)
+    for i in (0, 1):
+        state, _ = pipeline.vo_step(state, *feed.frame(i), calib, cfg)
+    feats = detect_and_describe(imgs, cfg.sift)
+    fl, fr = (pipeline._image_features(feats, k) for k in (0, 1))
+    _, out = pipeline._step_core(state, fl, fr, calib, cfg)
+    lmap = landmarks.init_map(cfg.landmarks, dev)
+    stages = {
+        "detect_and_describe (4 images)": lambda: detect_and_describe(imgs, cfg.sift),
+        "_step_core (1 frame)": lambda: pipeline._step_core(state, fl, fr, calib, cfg),
+        "landmarks.insert (1 frame)": lambda: landmarks.insert(
+            lmap, out.new_lm_l_px, out.new_lm_r_px, out.new_lm_mask, out.pose_c2w, calib, cfg.landmarks
+        ),
+    }
+    summary["stages"] = {}
+    for name, fn in stages.items():
+        enq, wall = host_times(fn, args.reps)
+        busy, launches, by = traced(fn, args.reps)
+        summary["stages"][name] = dict(enqueue_ms=enq, wall_ms=wall, device_ms=busy, launches=launches)
+        print(f"stage {name}: enqueue {enq:.3f} ms, wall {wall:.3f} ms, device {busy:.3f} ms, {launches:.0f} launches")
+        for k, v in by.most_common(4):
+            print(f"    {v:8.4f} ms  {k[:100]}")
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "profile_torch_step.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,94 @@
+"""numpy <-> port conversion of the state the VO step carries.
+
+The port and the JAX reference keep the same fields under the same names, so
+identical state can be put into both packages: ``to_numpy`` turns any port
+NamedTuple (or a reference one) into the same structure of numpy arrays, and
+the ``*_from_numpy`` functions take any object with the right field names
+holding array-likes (numpy, or the reference's jax arrays, which numpy reads
+without this module importing jax).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .frontend.sift import Features
+from .frontend.track import StereoFeatures
+from .geom.camera import StereoCalib, calib_from_projections
+from .odometry.landmarks import LandmarkMap
+from .odometry.pipeline import VOState
+
+
+def to_numpy(x):
+    """Tensors/arrays -> numpy, recursively through NamedTuples (kept as their own type),
+    tuples, lists and dicts.
+
+    A ``torch.Generator`` (VOState.gen) becomes None: the sample stream does
+    not cross between the packages.
+    """
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    if isinstance(x, torch.Generator) or x is None:
+        return None
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(to_numpy(v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(to_numpy(v) for v in x)
+    if isinstance(x, dict):
+        return {k: to_numpy(v) for k, v in x.items()}
+    if isinstance(x, (int, float, bool, str)):
+        return x
+    return np.asarray(x)
+
+
+def _t(a, device, dtype=None) -> torch.Tensor:
+    return torch.as_tensor(np.array(a, dtype=dtype), device=device)
+
+
+def calib_from_numpy(c, device=None) -> StereoCalib:
+    """StereoCalib from an object with P1, P2 and image_size."""
+    return calib_from_projections(np.asarray(c.P1), np.asarray(c.P2), image_size=tuple(c.image_size), device=device)
+
+
+def features_from_numpy(f, device=None) -> Features:
+    return Features(
+        xy=_t(f.xy, device, np.float32),
+        scale=_t(f.scale, device, np.float32),
+        orientation=_t(f.orientation, device, np.float32),
+        response=_t(f.response, device, np.float32),
+        desc=_t(f.desc, device, np.float32),
+        mask=_t(f.mask, device, bool),
+    )
+
+
+def stereo_features_from_numpy(s, device=None) -> StereoFeatures:
+    return StereoFeatures(
+        l_xy=_t(s.l_xy, device, np.float32),
+        r_xy=_t(s.r_xy, device, np.float32),
+        l_desc=_t(s.l_desc, device, np.float32),
+        r_desc=_t(s.r_desc, device, np.float32),
+        mask=_t(s.mask, device, bool),
+        ids=_t(s.ids, device, np.int32),
+    )
+
+
+def state_from_numpy(s, device=None, seed: int = 0) -> VOState:
+    """VOState from an object with prev, pose_c2w, prev_rel, frame_idx, next_id; a fresh generator from ``seed``."""
+    gen = torch.Generator(device=torch.device(device) if device is not None else "cpu")
+    gen.manual_seed(seed)
+    return VOState(
+        prev=stereo_features_from_numpy(s.prev, device),
+        pose_c2w=_t(s.pose_c2w, device, np.float32),
+        prev_rel=_t(s.prev_rel, device, np.float32),
+        frame_idx=_t(s.frame_idx, device, np.int64),
+        next_id=_t(s.next_id, device, np.int32),
+        gen=gen,
+    )
+
+
+def lmap_from_numpy(m, device=None) -> LandmarkMap:
+    return LandmarkMap(
+        xyz=_t(m.xyz, device, np.float32),
+        count=_t(m.count, device, np.int64),
+        dropped=_t(m.dropped, device, np.int64),
+    )
