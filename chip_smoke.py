@@ -14,8 +14,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      synthetic KITTI-00 feed at the default PipelineConfig: one warm run, then
      a timed run with the kernels' launch counters reset just before it. Fails
      on ATE > 0.05 m, fewer than 28 of 29 pose_ok, a non-finite pose or a
-     kernel that the run never launched.
-The line before the last is a JSON summary of the kernels; the last line is
+     kernel that the run never launched;
+  5. the refined path, run_sequence(use_ba=True, use_loop_closure=True), at the
+     default PipelineConfig over a 199-frame out-and-back feed (KITTI-00 GT
+     poses 0..99 then 98..0, 376x1241, 6000 landmarks, seed 0, noise 0): plain
+     VO once, the refined path once warm and once timed with the launch
+     counters reset. Fails on a non-finite pose, a wrong pose count, keyframes
+     != 39, no window solve, no verified loop candidate, refined ATE > plain
+     ATE + 0.02 m, plain ATE > 0.15 m, or a kernel the timed run never launched;
+  6. a loop closure that fires on the card: every 5th frame of the phase-5 feed
+     from frame 5 on, detected and stereo-matched on the card, archived in a
+     default-config LoopCloser with its GT pose drifted +0.1 m in x per
+     keyframe. Fails unless a closure fires and the newest keyframe of the loop
+     ends closer to its GT pose than half its drifted error.
+The line before the last is a JSON summary of the kernels (launches summed
+over the timed runs of phases 4 and 5); the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -32,14 +45,22 @@ from vo_tpu_torch.config import PipelineConfig
 from vo_tpu_torch.eval import metrics
 from vo_tpu_torch.frontend import kernels
 from vo_tpu_torch.frontend.pyramid import build_pyramid
-from vo_tpu_torch.io import synthetic
+from vo_tpu_torch.frontend.sift import detect_and_describe
+from vo_tpu_torch.frontend.track import stereo_features_with_matches
+from vo_tpu_torch.io import kitti, synthetic
 from vo_tpu_torch.odometry import runner
+from vo_tpu_torch.odometry.refiner import global_desc
+from vo_tpu_torch.slam.loop_closure import ArchivedKeyframe, LoopCloser
 
 N_FRAMES = 30
 N_LANDMARKS = 6000
 REPS = 25
 K2_TOL = 1e-5
 ATE_MAX_M = 0.05
+OUT_FRAMES = 100  # phase 5: GT poses 0..99 out, 98..0 back
+PLAIN_ATE_MAX_M = 0.15
+REFINED_ATE_SLACK_M = 0.02
+DRIFT_PER_KF_M = 0.1  # phase 6
 
 KERNELS = {
     "extrema_scores": dict(
@@ -99,6 +120,108 @@ def check_kernels(feed: runner.StagedSequence, cfg: PipelineConfig) -> dict:
     return stats
 
 
+class OutAndBackFeed:
+    """GT poses 0..n-1 then n-2..0, staged on ``device``. The way back revisits every pose of the
+    way out, so its frames are the outbound frames of the same poses (rendered and staged once)."""
+
+    def __init__(self, n_out: int, device):
+        root = synthetic.DEFAULT_KITTI_ROOT
+        gt = kitti.read_poses(f"{root}/poses/00.txt")[:n_out]
+        self.gt_poses = np.concatenate([gt, gt[-2::-1]])
+        seq = synthetic.SyntheticSequence(
+            kitti.load_stereo_calib(f"{root}/00"), self.gt_poses, n_landmarks=N_LANDMARKS, seed=0
+        )
+        self.calib = seq.calib
+        out = [tuple(runner.to_device(im, device) for im in seq.frame(i)) for i in range(n_out)]
+        self.frames = out + out[-2::-1]
+        self.H, self.W = seq.H, seq.W
+
+    def __len__(self) -> int:
+        return len(self.frames)
+
+    def frame(self, i: int):
+        return self.frames[i]
+
+
+def refined_path(feed: OutAndBackFeed, cfg: PipelineConfig, device) -> dict:
+    """Phase 5: plain VO and the refined path over the out-and-back feed."""
+    n = len(feed)
+    gt = feed.gt_poses
+    plain = runner.run_sequence(feed, cfg, device=device)
+    runner.run_sequence(feed, cfg, use_ba=True, use_loop_closure=True, device=device)  # warm
+    kernels.reset_launches()
+    res = runner.run_sequence(feed, cfg, use_ba=True, use_loop_closure=True, device=device)
+    launches = dict(kernels.LAUNCHES)
+    ate_plain = metrics.ate(plain.poses, gt)["rmse"]
+    ate = metrics.ate(res.poses, gt)["rmse"]
+    st = res.refine_stats
+    print(
+        f"[5] refined path, {n} out-and-back frames at the default config: {res.frames_per_sec:.3f} fps, "
+        f"{res.per_frame_ms:.3f} ms/frame, ATE rmse {ate:.5f} m; plain VO {plain.frames_per_sec:.3f} fps, "
+        f"{plain.per_frame_ms:.3f} ms/frame, ATE rmse {ate_plain:.5f} m; launches {launches}"
+    )
+    print(f"    refine_stats {json.dumps(st, sort_keys=True)}")
+    if not (np.isfinite(res.poses).all() and np.isfinite(plain.poses).all()):
+        raise AssertionError("non-finite pose in phase 5")
+    if res.poses.shape != (n - 1, 4, 4):
+        raise AssertionError(f"expected {n - 1} refined poses, got {res.poses.shape}")
+    want_kf = (n - 1) // cfg.ba.keyframe_every
+    if st.get("n_keyframes") != want_kf:
+        raise AssertionError(f"n_keyframes {st.get('n_keyframes')} != {want_kf}")
+    if st.get("ba_solves", 0) < 1:
+        raise AssertionError("no window BA solve was accepted")
+    if st.get("lc_verified", 0) < 1:
+        raise AssertionError("no loop candidate was verified")
+    if not ate_plain <= PLAIN_ATE_MAX_M:
+        raise AssertionError(f"plain ATE {ate_plain} m > {PLAIN_ATE_MAX_M} m")
+    if not ate <= ate_plain + REFINED_ATE_SLACK_M:
+        raise AssertionError(f"refined ATE {ate} m > plain ATE {ate_plain} m + {REFINED_ATE_SLACK_M} m")
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the refined path")
+    return launches
+
+
+def closure_fires(feed: OutAndBackFeed, cfg: PipelineConfig, device) -> None:
+    """Phase 6: keyframes with growing drift through a default-config LoopCloser on the card."""
+    calib = feed.calib.to(device)
+    lc = LoopCloser(feed.calib, cfg.loop, matcher=cfg.matcher, device=device)
+    gt = feed.gt_poses
+    fired = None
+    kf_frames = list(range(cfg.ba.keyframe_every, len(feed), cfg.ba.keyframe_every))
+    for k, i in enumerate(kf_frames):
+        imgs = torch.stack(feed.frame(i)).float() / 255.0
+        f = detect_and_describe(imgs, cfg.sift)
+        fl, fr = (type(f)(*(x[j] for x in f)) for j in (0, 1))
+        sf, _ = stereo_features_with_matches(fl, fr, cfg.matcher, cfg.max_tracks)
+        pose = gt[i].astype(np.float32).copy()
+        pose[0, 3] += DRIFT_PER_KF_M * k
+        res = lc.add_keyframe(
+            ArchivedKeyframe(
+                frame_idx=i, pose_c2w=pose, l_px=None, r_px=None, l_desc=None, mask=None,
+                global_desc=global_desc(fl.desc, fl.mask).cpu().numpy(),
+                dev=(sf.l_xy, sf.r_xy, sf.l_desc, sf.mask),
+            ),
+            query_dev=(fl.xy, fl.desc, fl.mask),
+        )
+        fired = res if res is not None else fired
+    fired = lc.flush() or fired
+    if fired is None:
+        raise AssertionError(f"no loop closure fired ({lc.n_verified} candidates verified)")
+    old_k, new_k = fired["loop"]
+    fi = lc.keyframes[new_k].frame_idx
+    err_drift = DRIFT_PER_KF_M * kf_frames.index(fi)
+    err = float(np.linalg.norm(fired["corrected"][new_k][:3, 3] - gt[fi][:3, 3]))
+    print(
+        f"[6] loop closure on the card: {len(kf_frames)} keyframes, {lc.n_verified} candidates verified, "
+        f"loop {old_k}->{new_k} (frames {lc.keyframes[old_k].frame_idx}->{fi}), newest loop keyframe error "
+        f"{err:.4f} m against {err_drift:.4f} m drifted, {lc.skipped_small} skipped as small, "
+        f"phase seconds {json.dumps({k: round(v, 4) for k, v in lc.phase_s.items()})}"
+    )
+    if not err < 0.5 * err_drift:
+        raise AssertionError(f"closure left the newest loop keyframe {err} m off, not under half of {err_drift} m")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card", file=sys.stderr)
@@ -148,6 +271,14 @@ def main() -> int:
     for k, v in launches.items():
         if v <= 0:
             raise AssertionError(f"kernel {k} was not launched by the main path")
+
+    t = time.perf_counter()
+    feed5 = OutAndBackFeed(OUT_FRAMES, device)
+    print(f"[5] rendered and staged {OUT_FRAMES} frames {feed5.H}x{feed5.W} for a {len(feed5)}-frame feed in "
+          f"{time.perf_counter() - t:.1f} s")
+    for k, v in refined_path(feed5, cfg, device).items():
+        launches[k] += v
+    closure_fires(feed5, cfg, device)
 
     summary = [
         dict(

@@ -153,7 +153,9 @@ def test_fused_group_matches_group_2(seqs, port_run, group):
 
 @pytest.mark.parametrize(
     "opt",
-    [dict(use_ba=True), dict(use_loop_closure=True), dict(mesh=object()), dict(checkpoint_path="ck.npz", checkpoint_every=5),
+    # The refined path (use_ba / use_loop_closure) is ported; its checkpoint and live figures are not.
+    [dict(use_ba=True, checkpoint_path="ck.npz", checkpoint_every=5), dict(use_loop_closure=True, viz_dir="viz"),
+     dict(mesh=object()), dict(checkpoint_path="ck.npz", checkpoint_every=5),
      dict(resume=True), dict(progress=print), dict(metrics_path="m.jsonl"), dict(viz_every=10)],
 )
 def test_runner_rejects_unported_options(seqs, opt):

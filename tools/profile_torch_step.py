@@ -1,6 +1,7 @@
 """Where the PyTorch/CUDA port's main path spends its time on one CUDA card.
 
     python tools/profile_torch_step.py [--frames 30]
+    python tools/profile_torch_step.py --refined
 
 Renders the synthetic KITTI-00 feed (30 frames, 6000 landmarks, seed 0, as
 chip_smoke.py), stages it on the card and runs odometry.runner.run_sequence at
@@ -16,7 +17,15 @@ the default PipelineConfig. Prints, with the card's name and power limit:
   device busy time and launches. Enqueue close to wall with little device time
   means the stage is bound by launches from the host.
 
-The summary is also written as JSON to chiprun_out/profile_torch_step.json.
+With ``--refined`` it profiles the refined path instead
+(run_sequence(use_ba=True, use_loop_closure=True) over chip_smoke.py's
+199-frame out-and-back feed): untraced ms/frame and fps, the refiner's stats
+(main-thread wait, worker phase seconds), and under torch.profiler the device
+busy time (the union of kernel and copy intervals over both streams: the
+frame loop's and the refiner's) and idle share.
+
+The summary is also written as JSON to chiprun_out/profile_torch_step.json
+(profile_torch_step_refined.json with ``--refined``).
 """
 from __future__ import annotations
 
@@ -55,7 +64,17 @@ def traced(fn, reps: int):
     by_name = collections.Counter()
     for e in evs:
         by_name[e.name] += e.time_range.elapsed_us() / 1000.0 / reps
-    return sum(by_name.values()), len(evs) / reps, by_name
+    return union_ms(evs) / reps, len(evs) / reps, by_name
+
+
+def union_ms(evs) -> float:
+    """Device busy ms: the union of the events' intervals (streams may overlap)."""
+    busy, end = 0.0, -float("inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in evs):
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy / 1000.0
 
 
 def host_times(fn, reps: int):
@@ -74,6 +93,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=30)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--refined", action="store_true", help="profile the refined path (BA + loop closure)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_step: needs a CUDA card", file=sys.stderr)
@@ -85,6 +105,8 @@ def main() -> int:
     ).stdout.strip()
     print(card)
     cfg = PipelineConfig()
+    if args.refined:
+        return profile_refined(cfg, dev, card)
     seq = synthetic.kitti_synthetic_sequence(n_frames=args.frames, n_landmarks=6000, seed=0)
     feed = runner.StagedSequence(seq, args.frames, dev)
 
@@ -138,6 +160,46 @@ def main() -> int:
     with open(os.path.join("chiprun_out", "profile_torch_step.json"), "w") as f:
         json.dump(summary, f, indent=1)
     return 0
+
+
+def profile_refined(cfg: PipelineConfig, dev, card: str) -> int:
+    from chip_smoke import OUT_FRAMES, OutAndBackFeed
+
+    feed = OutAndBackFeed(OUT_FRAMES, dev)
+    n = len(feed)
+
+    def run(warmup=True):
+        return runner.run_sequence(feed, cfg, use_ba=True, use_loop_closure=True, device=dev, warmup=warmup)
+
+    run()  # warm
+    res = run()
+    busy, launches, by_name = traced(lambda: run(warmup=False), 1)
+    summary = dict(
+        card=card,
+        frames=n,
+        wall_ms_per_frame=res.per_frame_ms,
+        fps=res.frames_per_sec,
+        refine_stats=res.refine_stats,
+        device_busy_ms_per_frame=busy / n,
+        device_idle_share=1.0 - (busy / n) / res.per_frame_ms,
+        launches_per_frame=launches / n,
+        top_kernels_ms_per_frame={k: v / n for k, v in by_name.most_common(12)},
+    )
+    print(
+        f"refined path: {res.per_frame_ms:.3f} ms/frame ({res.frames_per_sec:.2f} fps) untraced; device busy "
+        f"{busy / n:.3f} ms/frame, idle share {summary['device_idle_share']:.3f}, {launches / n:.0f} launches/frame"
+    )
+    print(f"refine_stats {json.dumps(res.refine_stats, sort_keys=True)}")
+    for k, v in by_name.most_common(12):
+        print(f"  {v / n:8.4f} ms/frame  {k[:110]}")
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "profile_torch_step_refined.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+    # After tracing the refiner's second thread and stream, the interpreter's
+    # exit hung until the call's time limit on the H100 (torch 2.11): leave
+    # without the profiler's teardown, everything is written.
+    sys.stdout.flush()
+    os._exit(0)
 
 
 if __name__ == "__main__":

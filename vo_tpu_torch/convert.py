@@ -6,17 +6,23 @@ NamedTuple (or a reference one) into the same structure of numpy arrays, and
 the ``*_from_numpy`` functions take any object with the right field names
 holding array-likes (numpy, or the reference's jax arrays, which numpy reads
 without this module importing jax).
+
+A VO engine carries no weights; what crosses between the packages is state:
+the VO step's, a window-BA problem, and the refiner's keyframes (window and
+loop-closure archive), so that both packages get identical inputs.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .ba.window import BAProblem
 from .frontend.sift import Features
 from .frontend.track import StereoFeatures
 from .geom.camera import StereoCalib, calib_from_projections
 from .odometry.landmarks import LandmarkMap
 from .odometry.pipeline import VOState
+from .utils.host_copy import upload
 
 
 def to_numpy(x):
@@ -91,4 +97,51 @@ def lmap_from_numpy(m, device=None) -> LandmarkMap:
         xyz=_t(m.xyz, device, np.float32),
         count=_t(m.count, device, np.int64),
         dropped=_t(m.dropped, device, np.int64),
+    )
+
+
+def ba_problem_from_numpy(p, device=None) -> BAProblem:
+    """BAProblem from a dict or an object with BAProblem's field names: float32 values, bool masks
+    (uploaded without waiting, utils.host_copy.upload)."""
+    get = p.get if isinstance(p, dict) else (lambda k: getattr(p, k))
+    out = {}
+    for k in BAProblem._fields:
+        a = np.asarray(get(k))
+        t = torch.from_numpy(np.ascontiguousarray(a, bool if a.dtype == bool else np.float32))
+        out[k] = t if device is None else upload(t, device)
+    return BAProblem(**out)
+
+
+def keyframe_from_numpy(kf):
+    """The port's window-BA Keyframe from an object with its fields (e.g. the reference's)."""
+    from .odometry.ba_runner import Keyframe
+
+    return Keyframe(
+        frame_idx=int(kf.frame_idx),
+        pose_c2w=np.array(kf.pose_c2w, np.float32),
+        ids=np.array(kf.ids),
+        l_px=np.array(kf.l_px, np.float32),
+        r_px=np.array(kf.r_px, np.float32),
+        mask=np.array(kf.mask, bool),
+    )
+
+
+def archived_keyframe_from_numpy(kf, device=None):
+    """The port's loop-closure ArchivedKeyframe from an object with its fields (e.g. the
+    reference's); its device refs (``dev``) are uploaded to ``device``."""
+    from .slam.loop_closure import ArchivedKeyframe
+
+    host = [np.array(getattr(kf, k), dt) for k, dt in (("l_px", np.float32), ("r_px", np.float32),
+                                                         ("l_desc", np.float32), ("mask", bool))]
+    gd = getattr(kf, "global_desc", None)
+    return ArchivedKeyframe(
+        frame_idx=int(kf.frame_idx),
+        pose_c2w=np.array(kf.pose_c2w, np.float32),
+        l_px=host[0],
+        r_px=host[1],
+        l_desc=host[2],
+        mask=host[3],
+        global_desc=None if gd is None else np.array(gd, np.float32),
+        path_m=float(getattr(kf, "path_m", 0.0)),
+        dev=tuple(torch.from_numpy(h).to(device) for h in host),
     )

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from . import kernels
-from .pyramid import blur_separable, gaussian_kernel_1d
+from .pyramid import _const, blur_separable, gaussian_kernel_1d
 
 _NB = kernels.NB  # descriptor orientation bins
 _CELLS = 4  # 4x4 spatial cells
@@ -102,7 +102,7 @@ def orientation_hists(maps_flat, row_base, yf, xf, sigma_rel, H2, W2) -> torch.T
     full-res coords; a stride-2 cell i covers full-res pixels 2i, 2i+1, so
     map coords are (p - 0.5) / 2.
     """
-    d = torch.tensor([-1.0, 0.0, 1.0], dtype=torch.float32, device=yf.device)
+    d = torch.arange(-1.0, 2.0, dtype=torch.float32, device=yf.device)  # [-1, 0, 1], made on the device
     oy = d[:, None].expand(3, 3).reshape(-1)  # [9]
     ox = d[None, :].expand(3, 3).reshape(-1)
     w = torch.exp(-0.5 * (oy**2 + ox**2))  # [9]
@@ -126,7 +126,7 @@ def descriptors(maps_flat, row_base, yf, xf, sigma_rel, theta, H2, W2) -> torch.
     xs = (xf[..., None] + (ct * ox - st * oy) * cell - 0.5) / 2.0
     ys = (yf[..., None] + (st * ox + ct * oy) * cell - 0.5) / 2.0
     cells = _bilinear_rows(maps_flat, _col(row_base), ys, xs, _col(H2), _col(W2))  # [B, K, 16, 8]
-    cells = cells * torch.from_numpy(_W_CELL).to(cells.device)[:, None]
+    cells = cells * _const(("cell_weights",), lambda: _W_CELL, cells.device)[:, None]
     # Rotate the bins into the keypoint frame: a fractional circular shift,
     # out-bin o reads in-bins i0 and i0+1 with weights (1-fs, fs).
     shift = theta / (2.0 * math.pi) * _NB

@@ -14,6 +14,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import SIFTConfig
+from ..utils.host_copy import upload
 from . import dense_desc, kernels
 from .pyramid import Pyramid, build_pyramid, sigma_schedule
 
@@ -199,9 +200,7 @@ def detect_and_describe(img: torch.Tensor, cfg: SIFTConfig) -> Features:
         W2s.append(W2)
     maps_flat = torch.cat(rows, dim=1)  # [B, N, 8]
     dev = img.device
-    H2_t = torch.tensor(H2s, device=dev)
-    W2_t = torch.tensor(W2s, device=dev)
-    off_t = torch.tensor(oct_off, device=dev)
+    H2_t, W2_t, off_t = upload(torch.tensor([H2s, W2s, oct_off]), dev)
 
     def fast_derived(sl):
         lvl0 = torch.clamp(sl.lvl - 1, 0, s - 1)

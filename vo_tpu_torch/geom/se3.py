@@ -17,7 +17,9 @@ def from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)
     bottom = torch.zeros(batch + (1, 4), dtype=top.dtype, device=top.device)
-    bottom[..., 0, 3] = 1.0
+    # A [..., 1] slice is filled on the device; the 0-dim slice [..., 0, 3] of an
+    # unbatched transform would be a copy from the host, which waits for the stream.
+    bottom[..., 3:] = 1.0
     return torch.cat([top, bottom], dim=-2)
 
 

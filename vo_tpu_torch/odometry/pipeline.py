@@ -189,7 +189,23 @@ def vo_step_multi(state: VOState, frames, calib: StereoCalib, cfg: PipelineConfi
     return state, outs
 
 
-def vo_step(state: VOState, left: torch.Tensor, right: torch.Tensor, calib: StereoCalib, cfg: PipelineConfig):
-    """One frame: ``vo_step_multi`` over a single stereo pair -> (state, FrameOutput)."""
-    state, outs = vo_step_multi(state, (left, right), calib, cfg)
-    return state, outs[0]
+def vo_step(
+    state: VOState,
+    left: torch.Tensor,
+    right: torch.Tensor,
+    calib: StereoCalib,
+    cfg: PipelineConfig,
+    return_feats: bool = False,
+):
+    """One frame -> (state, FrameOutput).
+
+    ``return_feats`` also returns the FULL left detection set (xy, desc,
+    mask): loop-closure verification matches the query keyframe's complete
+    detections, not just its stereo subset (slam.loop_closure).
+    """
+    feats = detect_and_describe(torch.stack([_normalize(left), _normalize(right)]), cfg.sift)
+    feats_l = _image_features(feats, 0)
+    state, out = _step_core(state, feats_l, _image_features(feats, 1), calib, cfg)
+    if return_feats:
+        return state, out, (feats_l.xy, feats_l.desc, feats_l.mask)
+    return state, out

@@ -1,4 +1,4 @@
-"""Host-side sequence runner around the per-frame step (port of vo_tpu.odometry.runner, main path).
+"""Host-side sequence runner around the per-frame step (port of vo_tpu.odometry.runner).
 
 The reference's outer ``for i = 1:n_frames`` (VO.m:64) on its deferred fast
 path: ``cfg.fused_group`` frames per step with detection batched across them,
@@ -6,8 +6,19 @@ a single-frame step for the tail, frames staged on the device as uint8, and
 the per-frame history kept as device tensors and read back once at the end,
 so the host never waits on the device inside the loop.
 
-Not ported yet: window BA, loop closure, the device mesh, checkpoint/resume,
-per-frame progress/metrics callbacks and the live figures. Each raises
+The refined path (``use_ba`` / ``use_loop_closure``) steps one frame at a
+time and hands every ``cfg.ba.keyframe_every``-th frame to the background
+refiner (odometry.refiner); with BA, the new keyframe's descriptors are first
+matched on the device against every keyframe of the window (the runner's
+descriptor ring). The frame loop's only host waits are the refiner's
+``throttle`` and the final synchronise. Corrections live in the worker's
+frame, and the full trajectory is re-anchored onto the corrected keyframes
+at the end (odometry.correction). The port's step is float32 end to end, so
+unlike the reference on a TPU (which pins float32 only when BA is on), its
+refined and plain paths see the same detection stream.
+
+Not ported yet: the device mesh, checkpoint/resume, per-frame
+progress/metrics callbacks and the live figures. Each raises
 ``NotImplementedError`` when asked for.
 """
 from __future__ import annotations
@@ -20,7 +31,10 @@ import numpy as np
 import torch
 
 from ..config import PipelineConfig
+from ..frontend.match import match
+from ..utils.host_copy import upload
 from . import landmarks as lm_mod
+from .correction import reanchor_trajectory, rebuild_rel_poses
 from .pipeline import init_state, vo_step, vo_step_multi
 
 
@@ -34,6 +48,7 @@ class RunResult:
     landmarks: np.ndarray  # [M, 3]
     frames_per_sec: float
     per_frame_ms: float
+    refine_stats: dict = dataclasses.field(default_factory=dict)
 
 
 def _unsupported(**opts) -> None:
@@ -49,11 +64,7 @@ def to_device(img, device) -> torch.Tensor:
     a = np.asarray(img)
     if a.dtype != np.uint8:
         a = (np.clip(a, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
-    t = torch.from_numpy(a)
-    if torch.device(device).type == "cuda":
-        # Pinned source: the copy is queued on the stream instead of waiting for it.
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+    return upload(torch.from_numpy(a), device)
 
 
 class StagedSequence:
@@ -77,6 +88,69 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+class _Keyframes:
+    """The refined path's side of the frame loop: throttle, window association, submit."""
+
+    def __init__(self, refiner, cfg: PipelineConfig, device, use_ba: bool):
+        self.refiner = refiner
+        self.cfg = cfg
+        self.every = cfg.ba.keyframe_every
+        self.wait_s = 0.0  # main-thread time blocked on the refiner
+        self.use_ba = use_ba
+        if use_ba:
+            # Descriptor ring of the keyframes in the BA window: each new
+            # keyframe is matched against every slot (ba_runner.WindowAssociator
+            # explains why frame-level track ids are not enough).
+            Kw, Cw = cfg.ba.window, cfg.max_tracks
+            self.ring_desc = torch.zeros((Kw, Cw, 128), dtype=torch.float32, device=device)
+            self.ring_mask = torch.zeros((Kw, Cw), dtype=torch.bool, device=device)
+            self.slot = 0
+
+    def is_keyframe(self, i: int) -> bool:
+        return i > 0 and i % self.every == 0
+
+    def throttle(self) -> None:
+        # Bounded lag: block only if the worker is > 2 keyframes behind.
+        t = time.perf_counter()
+        self.refiner.throttle(max_lag=2)
+        self.wait_s += time.perf_counter() - t
+
+    def _associate(self, desc: torch.Tensor, mask: torch.Tensor):
+        """Match the new keyframe against every ring slot, then take a slot for it -> (slot, a, b, ok)."""
+        Cw = self.cfg.max_tracks
+        ms = [match(desc, mask, d, m, self.cfg.matcher, Cw) for d, m in zip(self.ring_desc, self.ring_mask)]
+        slot = self.slot
+        self.ring_desc[slot] = desc
+        self.ring_mask[slot] = mask
+        self.slot = (slot + 1) % self.ring_desc.shape[0]
+        return slot, torch.stack([m.a_idx for m in ms]), torch.stack([m.b_idx for m in ms]), torch.stack([m.mask for m in ms])
+
+    def submit(self, i: int, state, out, query) -> None:
+        # state.prev now holds THIS frame's stereo features + track ids.
+        assoc = self._associate(state.prev.l_desc, state.prev.mask) if self.use_ba else None
+        self.refiner.submit(i, out.pose_c2w, state.prev, assoc=assoc, query=query)
+
+
+def _frame_loop(seq, n: int, group: int, device, state, lmap, run_group, kfs: Optional[_Keyframes]):
+    """Every frame through the step; returns (state, [FrameOutput for frames >= 1])."""
+    hist = []
+    i = 0
+    while i < n:
+        g = group if i + group <= n else 1  # single-frame tail
+        dev_frames = []
+        for k in range(g):
+            dev_frames += [to_device(im, device) for im in seq.frame(i + k)]
+        key = kfs is not None and kfs.is_keyframe(i)
+        if key:
+            kfs.throttle()
+        state, outs, query = run_group(state, lmap, dev_frames)
+        if key:
+            kfs.submit(i, state, outs[0], query)
+        hist += [out for k, out in enumerate(outs) if i + k > 0]  # all_poses starts at frame 2 (VO.m:133)
+        i += g
+    return state, hist
+
+
 def run_sequence(
     seq,
     cfg: PipelineConfig,
@@ -93,20 +167,21 @@ def run_sequence(
     use_loop_closure: bool = False,
     viz_every: int = 0,
     viz_dir: Optional[str] = None,
+    verbose: bool = False,
     mesh=None,
     device="cpu",
 ) -> RunResult:
-    """Run plain VO over ``seq`` (``frame(i) -> (left, right)``, ``calib``, ``len``) on ``device``.
+    """Run VO over ``seq`` (``frame(i) -> (left, right)``, ``calib``, ``len``) on ``device``.
 
     ``insert_landmarks`` defaults to cfg.view_3d (the reference's single flag,
     VO.m:6/145). Frames may be numpy images or tensors already on the device.
+    ``use_ba`` / ``use_loop_closure`` run the refined path (module docstring);
+    ``verbose`` is accepted for the reference's call sites and unused, as there.
     """
     _unsupported(
         progress=progress is not None,
         checkpoint=bool(checkpoint_path) or checkpoint_every > 0 or resume,
         metrics_path=metrics_path is not None,
-        use_ba=use_ba,
-        use_loop_closure=use_loop_closure,
         viz=viz_every > 0 or viz_dir is not None,
         mesh=mesh is not None,
     )
@@ -119,18 +194,23 @@ def run_sequence(
     if insert_landmarks is None:
         insert_landmarks = cfg.view_3d
     n = len(seq) if n_frames is None else min(n_frames, len(seq))
-    group = cfg.fused_group
+    refined = use_ba or use_loop_closure
+    # The refined path steps frame by frame: keyframe submission needs
+    # state.prev at exact keyframe boundaries.
+    group = 1 if refined else cfg.fused_group
 
     def run_group(state, lmap, dev_frames):
+        query = None
         if len(dev_frames) == 2:
-            state, out = vo_step(state, dev_frames[0], dev_frames[1], calib, cfg)
-            outs = [out]
+            r = vo_step(state, dev_frames[0], dev_frames[1], calib, cfg, return_feats=use_loop_closure)
+            state, outs = r[0], [r[1]]
+            query = r[2] if use_loop_closure else None
         else:
             state, outs = vo_step_multi(state, dev_frames, calib, cfg)
         if lmap is not None:
             for out in outs:
                 lm_mod.insert(lmap, out.new_lm_l_px, out.new_lm_r_px, out.new_lm_mask, out.pose_c2w, calib, cfg.landmarks)
-        return state, outs
+        return state, outs, query
 
     if warmup:
         # Throwaway state and map: first-use costs (kernel build, library
@@ -144,19 +224,19 @@ def run_sequence(
         _sync(device)
         del w_map
 
+    refiner = kfs = None
+    if refined:
+        from .refiner import RefinerWorker
+
+        # Constructed before the timed loop: its solver and verification
+        # warm-ups run here.
+        refiner = RefinerWorker(seq.calib, cfg, use_ba=use_ba, use_loop_closure=use_loop_closure, device=device)
+        kfs = _Keyframes(refiner, cfg, device, use_ba)
+
     state = init_state(cfg, seed, device)
     lmap = lm_mod.init_map(cfg.landmarks, device) if insert_landmarks else None
-    hist = []  # FrameOutput per frame >= 1, on the device until the end
     t0 = time.perf_counter()
-    i = 0
-    while i < n:
-        g = group if i + group <= n else 1  # single-frame tail
-        dev_frames = []
-        for k in range(g):
-            dev_frames += [to_device(im, device) for im in seq.frame(i + k)]
-        state, outs = run_group(state, lmap, dev_frames)
-        hist += [out for k, out in enumerate(outs) if i + k > 0]  # all_poses starts at frame 2 (VO.m:133)
-        i += g
+    state, hist = _frame_loop(seq, n, group, device, state, lmap, run_group, kfs)
     _sync(device)
     wall = time.perf_counter() - t0
 
@@ -165,18 +245,35 @@ def run_sequence(
             return np.zeros(empty_shape, dtype)
         return torch.stack([getattr(o, field) for o in hist]).cpu().numpy().astype(dtype)
 
+    poses = stacked("pose_c2w", (0, 4, 4), np.float32)
+    rels = stacked("rel_pose", (0, 4, 4), np.float32)
+    refine_stats: dict = {}
+    if refiner is not None:
+        refiner.close()
+        refine_stats = dict(refiner.stats)
+        refine_stats["main_wait_s"] = round(kfs.wait_s, 3)
+        kf_idx, kf_poses = refiner.corrected_keyframes()
+        # History row for frame i is i-1 (all_poses convention, VO.m:133).
+        rows = kf_idx - 1
+        keep = (rows >= 0) & (rows < poses.shape[0])
+        if keep.any():
+            poses = reanchor_trajectory(poses, rows[keep], kf_poses[keep])
+            rels = rebuild_rel_poses(poses)
+        refine_stats["n_keyframes"] = int(kf_idx.size)
+
     if lmap is not None:
         count = int(lmap.count)
         lms = lmap.xyz[:count].cpu().numpy()
     else:
         lms = np.zeros((0, 3), np.float32)
     return RunResult(
-        poses=stacked("pose_c2w", (0, 4, 4), np.float32),
-        rel_poses=stacked("rel_pose", (0, 4, 4), np.float32),
+        poses=poses,
+        rel_poses=rels,
         n_inliers=stacked("n_inliers", (0,), np.int32),
         n_tracks=stacked("n_tracks", (0,), np.int32),
         pose_ok=stacked("pose_ok", (0,), bool),
         landmarks=lms,
         frames_per_sec=n / wall if wall > 0 else float("nan"),
         per_frame_ms=1000.0 * wall / max(n, 1),
+        refine_stats=refine_stats,
     )
