@@ -7,9 +7,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   1. the card's name and power limit (needs CUDA);
   2. build the hand-written kernels from vo_tpu_torch/csrc with nvcc;
   3. K1 (extrema_scores) and K2 (bin_maps) against their plain PyTorch versions
-     on the pyramids of rendered full-size frames, at the main path's shapes
-     for all four octaves: K1 must be exact, K2 within 1e-5; CUDA-event median
-     times of kernel and plain version over 25 repetitions;
+     on the pyramids of rendered full-size frames, at the main path's shapes:
+     octave by octave (K1 must be exact, K2 within 1e-5, reading the level
+     slice G[:, 1:4] in place), then the whole detection call in one launch
+     per kernel, which must equal the per-octave results bit for bit. The
+     one-launch call is timed with a 1 GiB buffer cleared before each launch
+     (inputs cold in L2; the events are queued while the clear still runs, so
+     the reading is the kernel's and not the host's launch latency), median
+     of 25; the same way octave 0 alone, the four per-octave launches, and a
+     device copy that moves the kernel's bytes (what the memory system gives a
+     plain copy of that size). 20 launches back to back between one pair of
+     events are reported too: where the host needs longer to enqueue a launch
+     than the card to run it, that reading is the host's. Each kernel's bound
+     is the larger of its bytes (inputs read once, outputs written once) over
+     3.35 TB/s and its float operations over 67 TFLOP/s;
   4. the plain-VO main path, odometry.runner.run_sequence, over the 30-frame
      synthetic KITTI-00 feed at the default PipelineConfig: one warm run, then
      a timed run with the kernels' launch counters reset just before it. Fails
@@ -27,9 +38,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      default-config LoopCloser with its GT pose drifted +0.1 m in x per
      keyframe. Fails unless a closure fires and the newest keyframe of the loop
      ends closer to its GT pose than half its drifted error.
-The line before the last is a JSON summary of the kernels (launches summed
-over the timed runs of phases 4 and 5); the last line is
-{"ok": true, "device": {...}}.
+The line before the last is a JSON summary of the kernels: ``launches`` summed
+over the timed runs of phases 4 and 5, ``ms`` the one-launch detection call
+with cold inputs, ``octave0_ms``, ``per_octave_launches_ms`` and
+``copy_same_bytes_ms`` timed the same way, ``back_to_back_ms``, ``plain_ms``
+the plain version over the four octaves, ``bound_ms`` / ``bound_by`` /
+``share_of_bound`` (bound over ``ms``), ``launches_per_detect_call`` counted
+over one detect_and_describe, and ``library_ms`` null: no single PyTorch call
+computes either function. The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -55,7 +71,16 @@ from vo_tpu_torch.slam.loop_closure import ArchivedKeyframe, LoopCloser
 N_FRAMES = 30
 N_LANDMARKS = 6000
 REPS = 25
+BACK_TO_BACK = 20
 K2_TOL = 1e-5
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published peak
+FP32_FLOP_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores, published peak
+# Float operations per element, counted from the plain versions' formulas. K1, per output: 27 max
+# and 27 min compares, |v|, two compares with the extrema, one with the threshold. K2, per pixel:
+# gradients 4, magnitude 4, angle about 20 (a division, an odd polynomial of degree 15, octant
+# fix-ups), bin coordinate and the two weights 8, accumulation into the pooled sums 4.
+K1_FLOP_PER_OUTPUT = 58
+K2_FLOP_PER_PIXEL = 40
 ATE_MAX_M = 0.05
 OUT_FRAMES = 100  # phase 5: GT poses 0..99 out, 98..0 back
 PLAIN_ATE_MAX_M = 0.15
@@ -85,38 +110,124 @@ def median_ms(fn, reps: int = REPS) -> float:
     return float(np.median(times))
 
 
+def back_to_back_ms(fn, n: int = BACK_TO_BACK) -> float:
+    """Time of one call: ``n`` calls between one pair of CUDA events, over ``n``. Inputs stay in L2 as far
+    as it holds them; where the host enqueues slower than the card runs, this is the host's time per call."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def cold_ms(fn, flush: torch.Tensor, reps: int = REPS) -> float:
+    """Median device time of one call whose inputs are not in L2: ``flush`` (far larger than L2) is
+    cleared before each call, and the events around the call are queued while the clear runs."""
+    fn()
+    pairs = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        flush.zero_()
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
+def bound(n_bytes: int, n_flop: int) -> dict:
+    """The least time the card could take: the larger of bytes over the memory rate and operations over the peak rate."""
+    by_bytes, by_ops = 1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * n_flop / FP32_FLOP_PER_S
+    return dict(bound_ms=max(by_bytes, by_ops), bound_by="bytes" if by_bytes >= by_ops else "operations", bytes=n_bytes, flop=n_flop)
+
+
 def check_kernels(feed: runner.StagedSequence, cfg: PipelineConfig) -> dict:
-    """Phase 3: each kernel against its plain version at the main path's shapes."""
+    """Phase 3: each kernel against its plain version at the main path's shapes, octave by octave and
+    as the one launch per detection call; times, bounds and launches per detection call."""
     s = cfg.sift
+    thr = s.contrast_threshold
     # One group program's detection batch: the left and right images of fused_group frames.
     imgs = torch.stack([im for i in range(cfg.fused_group) for im in feed.frame(i)]).float() / 255.0
     pyr = build_pyramid(imgs, s)
-    stats = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0) for k in KERNELS}
+    dogs = pyr.dog[: s.n_octaves]
+    levels = [G[:, 1 : s.scales_per_octave + 1] for G in pyr.gauss[: s.n_octaves]]  # views, read in place
+    stats = {k: dict(max_abs_err=0.0, plain_ms=0.0) for k in KERNELS}
+    per_octave = {k: [] for k in KERNELS}
     for o in range(s.n_octaves):
-        dog = pyr.dog[o].contiguous()
-        lev = pyr.gauss[o][:, 1 : s.scales_per_octave + 1].reshape(-1, *dog.shape[2:]).contiguous()
+        dog, lev = dogs[o], levels[o]
         cases = {
-            "extrema_scores": (
-                lambda: kernels.extrema_scores(dog, s.contrast_threshold),
-                lambda: kernels.extrema_scores_plain(dog, s.contrast_threshold),
-                tuple(dog.shape),
-            ),
-            "bin_maps": (lambda: kernels.bin_maps(lev), lambda: kernels.soft_bin_pool_plain(lev), tuple(lev.shape)),
+            "extrema_scores": (lambda: kernels.extrema_scores(dog, thr), lambda: kernels.extrema_scores_plain(dog, thr), dog),
+            "bin_maps": (lambda: kernels.bin_maps(lev), lambda: kernels.bin_maps_plain(lev), lev),
         }
-        for name, (kern, plain, shape) in cases.items():
+        for name, (kern, plain, x) in cases.items():
             got = kern()
             torch.cuda.synchronize()
             err = float((got - plain()).abs().max())
-            ms, plain_ms = median_ms(kern), median_ms(plain)
-            st = stats[name]
-            st["max_abs_err"] = max(st["max_abs_err"], err)
-            st["ms"] += ms
-            st["plain_ms"] += plain_ms
-            print(f"  {name} octave {o} in {shape}: max|kernel-plain| {err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
+            plain_ms = median_ms(plain)
+            per_octave[name].append(got)
+            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+            stats[name]["plain_ms"] += plain_ms
+            print(f"  {name} octave {o} in {tuple(x.shape)} strides {x.stride()}: max|kernel-plain| {err:.3e}  plain {plain_ms:.4f} ms")
     if stats["extrema_scores"]["max_abs_err"] != 0.0:
         raise AssertionError(f"K1 extrema_scores differs from its plain version: {stats['extrema_scores']}")
     if not stats["bin_maps"]["max_abs_err"] <= K2_TOL:
         raise AssertionError(f"K2 bin_maps exceeds {K2_TOL}: {stats['bin_maps']}")
+
+    # (the detection call in one launch, the same work as one launch per octave)
+    calls = {
+        "extrema_scores": (
+            lambda: kernels.extrema_scores_octaves(dogs, thr),
+            lambda: [kernels.extrema_scores(d, thr) for d in dogs],
+        ),
+        "bin_maps": (lambda: kernels.bin_maps_octaves(levels), lambda: [kernels.bin_maps(g) for g in levels]),
+    }
+    octave0 = {"extrema_scores": lambda: kernels.extrema_scores(dogs[0], thr), "bin_maps": lambda: kernels.bin_maps(levels[0])}
+    px = sum(d.shape[2] * d.shape[3] for d in dogs)
+    B, L = dogs[0].shape[:2]
+    n_lev = levels[0].shape[1]
+    pooled = sum((g.shape[2] // 2) * (g.shape[3] // 2) for g in levels)
+    bounds = {
+        "extrema_scores": bound(4 * B * (2 * L - 2) * px, K1_FLOP_PER_OUTPUT * B * (L - 2) * px),
+        "bin_maps": bound(4 * B * n_lev * (px + kernels.NB * pooled), K2_FLOP_PER_PIXEL * B * n_lev * px),
+    }
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=imgs.device)
+    for name, (call, octave_by_octave) in calls.items():
+        got = call()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, per_octave[name])):
+            raise AssertionError(f"{name}: the one-launch detection call differs from the per-octave launches")
+        st = stats[name]
+        st["back_to_back_ms"] = back_to_back_ms(call)
+        st["ms"] = cold_ms(call, flush)
+        st["per_octave_launches_ms"] = cold_ms(octave_by_octave, flush)
+        st["octave0_ms"] = cold_ms(octave0[name], flush)
+        half = torch.empty(bounds[name]["bytes"] // 2, dtype=torch.uint8, device=imgs.device)
+        other = torch.empty_like(half)
+        st["copy_same_bytes_ms"] = cold_ms(lambda: other.copy_(half), flush)
+        del half, other
+        st.update(bounds[name])
+        st["share_of_bound"] = st["bound_ms"] / st["ms"]
+        print(
+            f"  {name}, the detection call ({B} images, {s.n_octaves} octaves) in one launch: equal to the per-octave "
+            f"launches; {st['ms']:.4f} ms cold (octave 0 alone {st['octave0_ms']:.4f} ms, four launches "
+            f"{st['per_octave_launches_ms']:.4f} ms, a copy of the same bytes {st['copy_same_bytes_ms']:.4f} ms), "
+            f"{st['back_to_back_ms']:.4f} ms back to back, plain {st['plain_ms']:.4f} ms; bound {st['bound_ms']:.4f} ms "
+            f"by {st['bound_by']} ({st['bytes'] / 1e6:.1f} MB, {st['flop'] / 1e6:.0f} Mflop), share of bound {st['share_of_bound']:.3f}"
+        )
+    del flush
+    kernels.reset_launches()
+    detect_and_describe(imgs, s)
+    for name in KERNELS:
+        stats[name]["launches_per_detect_call"] = kernels.LAUNCHES[name]
+        if kernels.LAUNCHES[name] != 1:
+            raise AssertionError(f"{name}: {kernels.LAUNCHES[name]} launches in one detection call, expected 1")
     return stats
 
 
@@ -287,9 +398,18 @@ def main() -> int:
             source=meta["source"],
             replaces=meta["replaces"],
             launches=launches[k],
+            launches_per_detect_call=stats[k]["launches_per_detect_call"],
             max_abs_err=stats[k]["max_abs_err"],
             ms=stats[k]["ms"],
+            octave0_ms=stats[k]["octave0_ms"],
+            per_octave_launches_ms=stats[k]["per_octave_launches_ms"],
+            copy_same_bytes_ms=stats[k]["copy_same_bytes_ms"],
+            back_to_back_ms=stats[k]["back_to_back_ms"],
             plain_ms=stats[k]["plain_ms"],
+            bound_ms=stats[k]["bound_ms"],
+            bound_by=stats[k]["bound_by"],
+            share_of_bound=stats[k]["share_of_bound"],
+            library_ms=None,
         )
         for k, meta in KERNELS.items()
     ]

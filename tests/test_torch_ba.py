@@ -6,7 +6,9 @@ landmarks, perturbed initial poses and landmarks), full and masked: poses
 within 1e-4 m / 1e-4 rad, cost within 1e-3 relative. The host parts (the
 pose graph's float64 solve, window assembly, the associator, the collect
 gate) are the same numpy code, so they must give equal results. KITTI-00
-geometry comes from tests/data/kitti.
+geometry comes from tests/data/kitti. One ``BAConfig`` (the port's class) serves both
+sides: the reference reads its fields by name. The port runs on the CPU because every
+call names it (``device="cpu"``).
 
 The reference is imported by the ``ref`` fixture only, so the ``gpu`` case
 also runs where jax is not installed:
@@ -20,10 +22,10 @@ import numpy as np
 import pytest
 import torch
 
-from vo_tpu.config import BAConfig
 from vo_tpu_torch import convert
 from vo_tpu_torch.ba import pose_graph as p_pg
 from vo_tpu_torch.ba import window as p_win
+from vo_tpu_torch.config import BAConfig
 from vo_tpu_torch.io import kitti as p_kitti
 from vo_tpu_torch.io import synthetic as p_syn
 from vo_tpu_torch.odometry import ba_runner as p_bar
@@ -136,7 +138,7 @@ def test_solve_window_matches_reference(ref, rng, calib, gt, masked):
     r = ref.jax.jit(lambda q: ref.win.solve_window(q, ref.calib, cfg))(
         ref.win.BAProblem(**{k: ref.jnp.asarray(v) for k, v in p.items()})
     )
-    g = p_win.solve_window(convert.ba_problem_from_numpy(p), calib, cfg)
+    g = p_win.solve_window(convert.ba_problem_from_numpy(p, "cpu"), calib, cfg)
     T_r, T_g = np.asarray(r.T_c2w, np.float64), g.T_c2w.numpy().astype(np.float64)
     assert np.isfinite(T_g).all()
     np.testing.assert_allclose(T_g[:, :3, 3], T_r[:, :3, 3], atol=TOL)
@@ -159,7 +161,7 @@ def test_solve_window_cuda_matches_cpu(calib, gt):
     p = _ba_problem(np.random.default_rng(42), calib, gt, K=10, M=512)
     cfg = BAConfig()
     pc = calib
-    cpu = p_win.solve_window(convert.ba_problem_from_numpy(p), pc, cfg)
+    cpu = p_win.solve_window(convert.ba_problem_from_numpy(p, "cpu"), pc, cfg)
     dev = torch.device("cuda")
     gpu = p_win.solve_window(convert.ba_problem_from_numpy(p, dev), pc.to(dev), cfg)
     np.testing.assert_allclose(gpu.T_c2w.cpu().numpy(), cpu.T_c2w.numpy(), atol=TOL)
@@ -222,7 +224,7 @@ def _window_keyframes(rng, calib, gt_poses, K=6, M=300, C=256):
 def test_windowed_ba_assemble_equals_reference(ref, rng, calib, gt):
     cfg = BAConfig(window=6, max_points=256)
     r_ba = ref.bar.WindowedBA(ref.calib, cfg)
-    port = p_bar.WindowedBA(calib, cfg)
+    port = p_bar.WindowedBA(calib, cfg, device="cpu")
     for k, kf in enumerate(_window_keyframes(rng, calib, gt)):
         r_kf = ref.bar.Keyframe(**{n: np.copy(v) if isinstance(v, np.ndarray) else v for n, v in kf.items()})
         r_ba.add_keyframe(r_kf)
@@ -261,7 +263,7 @@ def test_collect_makes_the_reference_decisions(ref, calib):
     max_corr_t and one beyond max_corr_deg (both counted as rejected), and a stale window."""
     cfg = BAConfig(window=3)
     r_ba = ref.bar.WindowedBA(ref.calib, cfg)
-    port = p_bar.WindowedBA(calib, cfg)
+    port = p_bar.WindowedBA(calib, cfg, device="cpu")
     poses = [np.eye(4, dtype=np.float32) for _ in range(3)]
     for k, P in enumerate(poses):
         P[0, 3] = float(k)

@@ -6,6 +6,7 @@ last-bit differences of the pyramid, so a keypoint is shared when the port has
 one within 1e-3 px of it (same orientation within 1e-3 rad) whose descriptor
 is within 1e-4; at least 98% of the reference's valid keypoints must be
 shared. Matching and tracking fed the same descriptors give identical index sets.
+The port gets each configuration in its own classes (``config_from_reference``).
 """
 from pathlib import Path
 
@@ -20,7 +21,7 @@ from vo_tpu.frontend import match as r_match
 from vo_tpu.frontend import pyramid as r_pyr
 from vo_tpu.frontend import sift as r_sift
 from vo_tpu.frontend import track as r_track
-from vo_tpu_torch.convert import features_from_numpy, to_numpy
+from vo_tpu_torch.convert import config_from_reference, features_from_numpy, to_numpy
 from vo_tpu_torch.frontend import match as p_match
 from vo_tpu_torch.frontend import pyramid as p_pyr
 from vo_tpu_torch.frontend import sift as p_sift
@@ -41,7 +42,7 @@ def frames():
 @pytest.fixture(scope="module")
 def port_feats(frames):
     """The port's Features of the four images, as numpy (fed to both packages' matchers)."""
-    return to_numpy(p_sift.detect_and_describe(torch.from_numpy(frames), CFG))
+    return to_numpy(p_sift.detect_and_describe(torch.from_numpy(frames), config_from_reference(CFG)))
 
 
 def _image(feats, i):
@@ -50,7 +51,7 @@ def _image(feats, i):
 
 def test_pyramid_gauss_and_dog(frames):
     cfg = SIFTConfig(n_octaves=4)
-    P = p_pyr.build_pyramid(torch.from_numpy(frames[:2]), cfg)
+    P = p_pyr.build_pyramid(torch.from_numpy(frames[:2]), config_from_reference(cfg))
     for b in range(2):
         R = r_pyr.build_pyramid(jnp.asarray(frames[b]), cfg)
         for o in range(4):
@@ -63,7 +64,7 @@ def test_detect_and_describe_matches_reference(frames, n_orientations):
     cfg = SIFTConfig(max_keypoints=384, n_octaves=3, n_orientations=n_orientations)
     img = frames[:2]
     ref = jax.jit(jax.vmap(lambda im: r_sift.detect_and_describe(im, cfg)))(jnp.asarray(img))
-    got = p_sift.detect_and_describe(torch.from_numpy(img), cfg)
+    got = p_sift.detect_and_describe(torch.from_numpy(img), config_from_reference(cfg))
     for b in range(2):
         rm = np.asarray(ref.mask[b])
         pm = got.mask[b].numpy()
@@ -87,7 +88,7 @@ def test_match_identical_index_sets(port_feats):
             cfg = MatcherConfig(mutual=mutual)
             args = (f.desc[a], f.mask[a], f.desc[b], f.mask[b])
             r = r_match.match(*(jnp.asarray(x) for x in args), cfg, 256)
-            p = p_match.match(*(torch.from_numpy(x) for x in args), cfg, 256)
+            p = p_match.match(*(torch.from_numpy(x) for x in args), config_from_reference(cfg), 256)
             assert int(np.asarray(r.mask).sum()) > 20
             for k in ("a_idx", "b_idx", "mask"):
                 np.testing.assert_array_equal(getattr(p, k).numpy(), np.asarray(getattr(r, k)), err_msg=k)
@@ -98,17 +99,20 @@ def test_track_identical_index_sets(port_feats):
     """Frame 0's stereo set, then the 4-stage cascade of frame 1 against it."""
     cap = 256
     mc = MatcherConfig()
+    pmc = config_from_reference(mc)
     f0l, f0r, f1l, f1r = (_image(port_feats, i) for i in range(4))
     r_old = r_track.stereo_features(
         r_sift.Features(*(jnp.asarray(x) for x in f0l)), r_sift.Features(*(jnp.asarray(x) for x in f0r)), mc, cap
     )
-    p_old, _ = p_track.stereo_features_with_matches(features_from_numpy(f0l), features_from_numpy(f0r), mc, cap)
+    p_old, _ = p_track.stereo_features_with_matches(
+        features_from_numpy(f0l, "cpu"), features_from_numpy(f0r, "cpu"), pmc, cap
+    )
     for k in ("l_xy", "r_xy", "l_desc", "r_desc", "mask", "ids"):
         np.testing.assert_array_equal(getattr(p_old, k).numpy(), np.asarray(getattr(r_old, k)), err_msg=k)
     r = r_track.track(
         r_old, r_sift.Features(*(jnp.asarray(x) for x in f1l)), r_sift.Features(*(jnp.asarray(x) for x in f1r)), mc, cap
     )
-    p = p_track.track(p_old, features_from_numpy(f1l), features_from_numpy(f1r), mc, cap)
+    p = p_track.track(p_old, features_from_numpy(f1l, "cpu"), features_from_numpy(f1r, "cpu"), pmc, cap)
     assert int(np.asarray(r.mask).sum()) > 20
     for k in ("cur_l_idx", "cur_r_idx", "old_row", "mask"):
         np.testing.assert_array_equal(getattr(p, k).numpy(), np.asarray(getattr(r, k)), err_msg=k)

@@ -55,7 +55,7 @@ def test_calib_from_committed_kitti_00():
 def test_triangulate_rectified(rng):
     P = r_kitti.read_calib(str(KITTI_00 / "calib.txt"))
     r = r_kitti.load_stereo_calib(str(KITTI_00))
-    p = calib_from_projections(P["P0"], P["P1"])
+    p = calib_from_projections(P["P0"], P["P1"], device="cpu")
     px_l = rng.uniform([0, 0], [1241, 376], (64, 2)).astype(np.float32)
     px_r = px_l - np.stack([rng.uniform(-2.0, 60.0, 64), np.zeros(64)], -1).astype(np.float32)  # some disparities <= 0
     Xr = np.asarray(r_tri.triangulate_rectified(jnp.asarray(px_l), jnp.asarray(px_r), r))

@@ -4,7 +4,9 @@ The feed drives out along KITTI 00 and back (GT poses 0..9 then 8..0, the
 loop fixture of tests/test_loop_closure.py) at 160x320; every frame is
 detected once with the port, and both packages archive the same features.
 Verification parity injects the reference's own RANSAC draws, rebuilt from
-``jax.random.split(PRNGKey(17))`` as its fused program splits it.
+``jax.random.split(PRNGKey(17))`` as its fused program splits it. The port's
+closers get the port's own configuration classes (``convert.config_from_reference``)
+and run on the CPU because every call names it.
 """
 import dataclasses
 from pathlib import Path
@@ -43,14 +45,18 @@ def loop():
     seq = p_syn.SyntheticSequence(
         p_kitti.load_stereo_calib(str(DATA / "00")), poses, n_landmarks=2500, seed=12, image_size=(160, 320)
     )
-    sift = SIFTConfig(max_keypoints=CAP, n_octaves=2)
+    sift = convert.config_from_reference(SIFTConfig(max_keypoints=CAP, n_octaves=2))
     feats = []
     for i in range(len(poses)):
         f = detect_and_describe(torch.from_numpy(np.stack(seq.frame(i))), sift)
         fl, fr = (type(f)(*(x[k] for x in f)) for k in (0, 1))
-        sf, _ = stereo_features_with_matches(fl, fr, MatcherConfig(), CAP)
+        sf, _ = stereo_features_with_matches(fl, fr, convert.config_from_reference(MatcherConfig()), CAP)
         feats.append((convert.to_numpy(sf), (fl.xy.numpy(), fl.desc.numpy(), fl.mask.numpy())))
     return r_scale_calib(r_kitti.load_stereo_calib(str(DATA / "00")), (160, 320)), poses, feats
+
+
+def _port_closer(calib, cfg):
+    return p_lc.LoopCloser(convert.calib_from_numpy(calib, "cpu"), convert.config_from_reference(cfg), device="cpu")
 
 
 def _archived(cls, i, pose, sf):
@@ -82,7 +88,7 @@ def test_candidates_equal_reference(loop):
     calib, poses, feats = loop
     cfg = dataclasses.replace(CFG, min_gap=4)
     ref = r_lc.LoopCloser(calib, cfg)
-    port = p_lc.LoopCloser(convert.calib_from_numpy(calib), cfg)
+    port = _port_closer(calib, cfg)
     seen = []
     for i, (sf, _) in enumerate(feats):
         pose = _drifted(poses, i, 0.3)
@@ -100,10 +106,10 @@ def test_verify_round_with_reference_triples(loop):
     """One fused round over 4 candidates: same ok / n_inliers / n_matches, pose within 1e-4."""
     calib, poses, feats = loop
     ref = r_lc.LoopCloser(calib, CFG)
-    port = p_lc.LoopCloser(convert.calib_from_numpy(calib), CFG)
+    port = _port_closer(calib, CFG)
     cand_frames, cur = [0, 1, 2, 3], 18
     r_cands = [_archived(r_lc.ArchivedKeyframe, i, poses[i], feats[i][0]) for i in cand_frames]
-    p_cands = [convert.archived_keyframe_from_numpy(kf) for kf in r_cands]
+    p_cands = [convert.archived_keyframe_from_numpy(kf, "cpu") for kf in r_cands]
     q = feats[cur][1]
     r_out, _ = ref._verify_prog(
         tuple(ref._dev_of(c) for c in r_cands), *(jnp.asarray(x) for x in q), jax.random.PRNGKey(17)
@@ -135,7 +141,7 @@ def test_closure_fires_and_corrects_drift(loop):
     """tests/test_loop_closure.py's drift case through the port: drift grows 0.12 m per keyframe,
     a closure fires, and the corrected last keyframe is much closer to the truth."""
     calib, poses, feats = loop
-    lc = p_lc.LoopCloser(convert.calib_from_numpy(calib), CFG)
+    lc = _port_closer(calib, CFG)
     state = lc._gen.get_state()
     lc.warmup(CAP)
     assert torch.equal(lc._gen.get_state(), state)  # warm-up leaves the RANSAC stream where it was
@@ -157,7 +163,7 @@ def test_decimation_equals_reference(loop):
     calib = loop[0]
     cfg = LoopConfig(max_keyframes=8, min_gap=100)
     ref = r_lc.LoopCloser(calib, cfg)
-    port = p_lc.LoopCloser(convert.calib_from_numpy(calib), cfg)
+    port = _port_closer(calib, cfg)
     z2, zd, zm = np.zeros((4, 2), np.float32), np.zeros((4, 128), np.float32), np.zeros(4, bool)
     for i in range(30):
         pose = np.eye(4, dtype=np.float32)

@@ -4,6 +4,9 @@ One ``_step_core`` starts from the reference's own state (converted) with the
 reference's RANSAC triples injected: track and landmark index sets must be
 identical and the pose within 1e-4. End to end, the runners draw different
 RANSAC samples, so they are compared by ATE, pose_ok and per-frame position.
+Each side gets the configuration in its own package's classes (``_cfg`` the
+reference's, ``_pcfg`` the port's copy of it), and the port runs on the CPU
+because every call names it (``device="cpu"``).
 """
 import os
 import subprocess
@@ -46,6 +49,10 @@ def _cfg(**kw):
     )
 
 
+def _pcfg(**kw):
+    return convert.config_from_reference(_cfg(**kw))
+
+
 @pytest.fixture(scope="module")
 def seqs():
     kw = dict(n_frames=N_FRAMES, n_landmarks=1500, seed=2, image_size=SIZE)
@@ -54,7 +61,7 @@ def seqs():
 
 @pytest.fixture(scope="module")
 def port_run(seqs):
-    return p_runner.run_sequence(seqs[0], _cfg(), warmup=False)
+    return p_runner.run_sequence(seqs[0], _pcfg(), warmup=False, device="cpu")
 
 
 def _features(feats, i):
@@ -64,16 +71,16 @@ def _features(feats, i):
 def test_step_core_matches_reference(seqs):
     """Frame 0 then frame 1 through _step_core, both packages fed the same features."""
     p_seq, r_seq = seqs
-    cfg = _cfg()
+    cfg, pcfg = _cfg(), _pcfg()
     imgs = np.stack([im for i in range(2) for im in p_seq.frame(i)]).astype(np.float32)
-    feats = convert.to_numpy(p_sift.detect_and_describe(torch.from_numpy(imgs), cfg.sift))
+    feats = convert.to_numpy(p_sift.detect_and_describe(torch.from_numpy(imgs), pcfg.sift))
     r_f = [r_sift.Features(*(jnp.asarray(x) for x in _features(feats, i))) for i in range(4)]
-    p_f = [convert.features_from_numpy(_features(feats, i)) for i in range(4)]
-    r_calib, p_calib = r_seq.calib, convert.calib_from_numpy(r_seq.calib)
+    p_f = [convert.features_from_numpy(_features(feats, i), "cpu") for i in range(4)]
+    r_calib, p_calib = r_seq.calib, convert.calib_from_numpy(r_seq.calib, "cpu")
     r_step = jax.jit(lambda s, fl, fr, k: r_pipe._step_core(s, fl, fr, k, k, r_calib, cfg))
 
     r_s1, _ = r_step(r_pipe.init_state(cfg), r_f[0], r_f[1], jax.random.PRNGKey(0))
-    p_s1, _ = p_pipe._step_core(p_pipe.init_state(cfg), p_f[0], p_f[1], p_calib, cfg)
+    p_s1, _ = p_pipe._step_core(p_pipe.init_state(pcfg, device="cpu"), p_f[0], p_f[1], p_calib, pcfg)
     for k in r_track.StereoFeatures._fields:
         np.testing.assert_array_equal(getattr(p_s1.prev, k).numpy(), np.asarray(getattr(r_s1.prev, k)), err_msg=k)
     assert int(p_s1.next_id) == int(r_s1.next_id) > 20
@@ -88,7 +95,7 @@ def test_step_core_matches_reference(seqs):
     triples = np.asarray(r_ransac._sample_triples(key, pose_mask, cfg.ransac.n_hypotheses))
     r_s2, r_out = r_step(r_s1, r_f[2], r_f[3], key)
     p_s2, p_out = p_pipe._step_core(
-        convert.state_from_numpy(convert.to_numpy(r_s1)), p_f[2], p_f[3], p_calib, cfg,
+        convert.state_from_numpy(convert.to_numpy(r_s1), "cpu"), p_f[2], p_f[3], p_calib, pcfg,
         triples=torch.tensor(triples, dtype=torch.long),
     )
     for k in ("tracked_mask", "tracked_cur_px", "tracked_old_px", "new_lm_mask", "new_lm_l_px", "new_lm_r_px",
@@ -106,11 +113,12 @@ def test_step_core_matches_reference(seqs):
 def test_landmarks_insert_matches_reference(rng, seqs, capacity):
     """Four inserts; the small map overflows (its tail is dropped and counted)."""
     r_calib = seqs[1].calib
-    p_calib = convert.calib_from_numpy(r_calib)
+    p_calib = convert.calib_from_numpy(r_calib, "cpu")
     cfg = LandmarkConfig(capacity=capacity)
     r_map = r_lm.init_map(cfg)
-    p_map = convert.lmap_from_numpy(r_map)  # the reference's empty map, carried across
-    fresh = p_lm.init_map(cfg)
+    pcfg = convert.config_from_reference(cfg)
+    p_map = convert.lmap_from_numpy(r_map, "cpu")  # the reference's empty map, carried across
+    fresh = p_lm.init_map(pcfg, "cpu")
     for k in p_lm.LandmarkMap._fields:
         assert getattr(p_map, k).dtype == getattr(fresh, k).dtype and getattr(p_map, k).shape == getattr(fresh, k).shape, k
     for _ in range(4):
@@ -120,7 +128,7 @@ def test_landmarks_insert_matches_reference(rng, seqs, capacity):
         pose = np.eye(4, dtype=np.float32)
         pose[:3, 3] = rng.normal(0, 5, 3)
         r_map = r_lm.insert(r_map, jnp.asarray(l_px), jnp.asarray(r_px), jnp.asarray(mask), jnp.asarray(pose), r_calib, cfg)
-        out = p_lm.insert(p_map, *(torch.from_numpy(x) for x in (l_px, r_px, mask, pose)), p_calib, cfg)
+        out = p_lm.insert(p_map, *(torch.from_numpy(x) for x in (l_px, r_px, mask, pose)), p_calib, pcfg)
         assert out is p_map  # updated in place
     assert int(p_map.count) == int(r_map.count) > 0
     assert int(p_map.dropped) == int(r_map.dropped)
@@ -146,7 +154,7 @@ def test_run_sequence_matches_reference(seqs, port_run):
 def test_fused_group_matches_group_2(seqs, port_run, group):
     """The single-frame step, and a 4-frame group with a single-frame tail (6 = 4 + 1 + 1),
     give the trajectory of the default 2-frame group."""
-    other = p_runner.run_sequence(seqs[0], _cfg(fused_group=group), warmup=False)
+    other = p_runner.run_sequence(seqs[0], _pcfg(fused_group=group), warmup=False, device="cpu")
     assert np.abs(other.poses[:, :3, 3] - port_run.poses[:, :3, 3]).max() < 1e-3
     np.testing.assert_array_equal(other.pose_ok, port_run.pose_ok)
 
@@ -160,17 +168,21 @@ def test_fused_group_matches_group_2(seqs, port_run, group):
 )
 def test_runner_rejects_unported_options(seqs, opt):
     with pytest.raises(NotImplementedError):
-        p_runner.run_sequence(seqs[0], _cfg(), **opt)
+        p_runner.run_sequence(seqs[0], _pcfg(), device="cpu", **opt)
 
 
 def test_port_never_imports_jax():
-    """Importing every vo_tpu_torch module (and chip_smoke) leaves jax out of sys.modules."""
+    """Importing every vo_tpu_torch module, chip_smoke and the profiling tool leaves jax and
+    every module of vo_tpu out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
-        "import vo_tpu_torch, chip_smoke\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import vo_tpu_torch, chip_smoke, profile_torch_step\n"
         "for m in pkgutil.walk_packages(vo_tpu_torch.__path__, 'vo_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
+        "ref = sorted(k for k in sys.modules if k == 'vo_tpu' or k.startswith('vo_tpu.'))\n"
+        "assert not ref, ref\n"
         "print('ok', len([k for k in sys.modules if k.startswith('vo_tpu_torch')]))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -16,7 +16,7 @@ from vo_tpu.io import kitti as r_kitti
 from vo_tpu.io import synthetic as r_syn
 from vo_tpu.pose import p3p as r_p3p
 from vo_tpu.pose import ransac as r_ransac
-from vo_tpu_torch.convert import calib_from_numpy
+from vo_tpu_torch.convert import calib_from_numpy, config_from_reference
 from vo_tpu_torch.pose import p3p as p_p3p
 from vo_tpu_torch.pose import ransac as p_ransac
 
@@ -88,7 +88,8 @@ def test_estimate_world_pose_with_injected_triples(calib, seed):
     triples = np.asarray(r_ransac._sample_triples(key, jnp.asarray(mask), cfg.n_hypotheses))
     r = r_ransac.estimate_world_pose(jnp.asarray(px), jnp.asarray(pts), jnp.asarray(mask), calib, cfg, key)
     p = p_ransac.estimate_world_pose(
-        torch.from_numpy(px), torch.from_numpy(pts), torch.from_numpy(mask), calib_from_numpy(calib), cfg,
+        torch.from_numpy(px), torch.from_numpy(pts), torch.from_numpy(mask), calib_from_numpy(calib, "cpu"),
+        config_from_reference(cfg),
         triples=torch.tensor(triples, dtype=torch.long),
     )
     assert bool(r.ok) and bool(p.ok)

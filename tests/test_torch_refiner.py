@@ -6,7 +6,9 @@ packages' ``run_sequence(use_ba=True, use_loop_closure=True)`` on a small
 out-and-back feed (GT 0..9 then 8..0 at 160x320, the loop fixture of
 tests/test_loop_closure.py): equal keyframe counts, finite poses, at least
 one window solve and one verified loop candidate each, ATEs within 0.02 m,
-and two port runs with the same seed give identical poses.
+and two port runs with the same seed give identical poses. Each package gets
+the configuration in its own classes (``_cfg(module)``), and the port runs on
+the CPU because every call names it (``device="cpu"``).
 
 The reference is imported by the ``ref`` fixture only, so the ``gpu`` case
 also runs where jax is not installed:
@@ -23,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from vo_tpu.config import BAConfig, LandmarkConfig, LoopConfig, PipelineConfig, RansacConfig, SIFTConfig
+from vo_tpu_torch import config as p_config
 from vo_tpu_torch.ba.pose_graph import _np_exp_so3
 from vo_tpu_torch.eval import metrics
 from vo_tpu_torch.io import kitti as p_kitti
@@ -39,20 +41,22 @@ SIZE = (160, 320)
 @pytest.fixture(scope="module")
 def ref():
     """The jax reference's modules."""
+    from vo_tpu import config
     from vo_tpu.io import kitti, synthetic
     from vo_tpu.odometry import correction, refiner, runner
 
-    return SimpleNamespace(kitti=kitti, syn=synthetic, corr=correction, refiner=refiner, runner=runner)
+    return SimpleNamespace(config=config, kitti=kitti, syn=synthetic, corr=correction, refiner=refiner, runner=runner)
 
 
-def _cfg():
-    return PipelineConfig(
-        sift=SIFTConfig(max_keypoints=256, n_octaves=2),
-        ransac=RansacConfig(n_hypotheses=128),
-        landmarks=LandmarkConfig(capacity=20000),
-        ba=BAConfig(keyframe_every=2, window=6),
+def _cfg(c=p_config):
+    """The test's configuration in the classes of config module ``c`` (the port's, or the reference's)."""
+    return c.PipelineConfig(
+        sift=c.SIFTConfig(max_keypoints=256, n_octaves=2),
+        ransac=c.RansacConfig(n_hypotheses=128),
+        landmarks=c.LandmarkConfig(capacity=20000),
+        ba=c.BAConfig(keyframe_every=2, window=6),
         # min_gap 4 keyframes: the revisit of the start (keyframe 8) sees keyframes 0-4.
-        loop=LoopConfig(radius=8.0, min_gap=4, min_inliers=15),
+        loop=c.LoopConfig(radius=8.0, min_gap=4, min_inliers=15),
         max_tracks=256,
     )
 
@@ -72,7 +76,7 @@ def feed():
 
 @pytest.fixture(scope="module")
 def port_run(feed):
-    return p_runner.run_sequence(feed, _cfg(), warmup=False, use_ba=True, use_loop_closure=True, seed=1)
+    return p_runner.run_sequence(feed, _cfg(), warmup=False, use_ba=True, use_loop_closure=True, seed=1, device="cpu")
 
 
 def _random_traj(rng, T):
@@ -120,7 +124,7 @@ def test_refined_run_matches_reference(ref, port_run):
     r_seq = ref.syn.SyntheticSequence(
         ref.kitti.load_stereo_calib(str(DATA / "00")), _out_and_back(), n_landmarks=2500, seed=12, image_size=SIZE
     )
-    r_res = ref.runner.run_sequence(r_seq, _cfg(), warmup=False, use_ba=True, use_loop_closure=True, seed=1)
+    r_res = ref.runner.run_sequence(r_seq, _cfg(ref.config), warmup=False, use_ba=True, use_loop_closure=True, seed=1)
     gt = _out_and_back()
     for res in (port_run, r_res):
         assert res.poses.shape == (len(gt) - 1, 4, 4) and np.isfinite(res.poses).all()
@@ -134,7 +138,7 @@ def test_refined_run_matches_reference(ref, port_run):
 
 
 def test_refined_run_is_deterministic(feed, port_run):
-    again = p_runner.run_sequence(feed, _cfg(), warmup=False, use_ba=True, use_loop_closure=True, seed=1)
+    again = p_runner.run_sequence(feed, _cfg(), warmup=False, use_ba=True, use_loop_closure=True, seed=1, device="cpu")
     np.testing.assert_array_equal(again.poses, port_run.poses)
     assert again.refine_stats["ba_solves"] == port_run.refine_stats["ba_solves"]
 
@@ -148,7 +152,7 @@ def test_worker_error_reaches_the_main_thread(feed, monkeypatch):
 
     monkeypatch.setattr(ba_runner.WindowedBA, "dispatch", fail)
     with pytest.raises(RuntimeError, match="window solve failed"):
-        p_runner.run_sequence(feed, _cfg(), n_frames=9, warmup=False, use_ba=True)
+        p_runner.run_sequence(feed, _cfg(), n_frames=9, warmup=False, use_ba=True, device="cpu")
 
 
 @pytest.mark.gpu

@@ -11,11 +11,15 @@ the default PipelineConfig. Prints, with the card's name and power limit:
 - the same run under torch.profiler: device busy ms/frame (sum of kernel and
   copy times on the card; one stream, so they do not overlap), the device's
   idle share (1 - busy / untraced wall), launches per frame, and the kernels
-  that take the most device time;
+  that take the most device time, with the two hand-written kernels named
+  (K1 extrema_scores, K2 bin_maps) whatever their rank;
 - per stage of one 2-frame group (batched detection, each frame's _step_core,
   each landmark insert): host time to enqueue, wall time to a synchronise,
   device busy time and launches. Enqueue close to wall with little device time
-  means the stage is bound by launches from the host.
+  means the stage is bound by launches from the host;
+- what detection's device time is made of: K1 (one launch over the pyramid),
+  the per-octave torch.topk over [4, 3*H*W] that follows K1, and K2 (one
+  launch), each run alone on the detection batch's pyramid.
 
 With ``--refined`` it profiles the refined path instead
 (run_sequence(use_ba=True, use_loop_closure=True) over chip_smoke.py's
@@ -44,9 +48,20 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from vo_tpu_torch.config import PipelineConfig  # noqa: E402
-from vo_tpu_torch.frontend.sift import detect_and_describe  # noqa: E402
+from vo_tpu_torch.frontend import kernels  # noqa: E402
+from vo_tpu_torch.frontend.pyramid import build_pyramid  # noqa: E402
+from vo_tpu_torch.frontend.sift import _octave_caps, detect_and_describe  # noqa: E402
 from vo_tpu_torch.io import synthetic  # noqa: E402
 from vo_tpu_torch.odometry import landmarks, pipeline, runner  # noqa: E402
+
+
+# Device kernel names of the hand-written kernels (csrc/*.cu), as the profiler reports them.
+HAND_WRITTEN = {"extrema_scores_kernel": "K1 extrema_scores", "bin_maps_kernel": "K2 bin_maps"}
+
+
+def hand_written_ms(by_name) -> dict:
+    """{K1 ..., K2 ...: device ms} summed over the profiler's kernel names."""
+    return {label: sum(v for k, v in by_name.items() if key in k) for key, label in HAND_WRITTEN.items()}
 
 
 def device_events(prof):
@@ -123,6 +138,7 @@ def main() -> int:
         device_idle_share=1.0 - (busy / n) / res.per_frame_ms,
         launches_per_frame=launches / n,
         top_kernels_ms_per_frame={k: v / n for k, v in by_name.most_common(12)},
+        hand_written_ms_per_frame={k: v / n for k, v in hand_written_ms(by_name).items()},
     )
     print(
         f"main path: {res.per_frame_ms:.3f} ms/frame ({res.frames_per_sec:.2f} fps) untraced; device busy "
@@ -130,6 +146,8 @@ def main() -> int:
     )
     for k, v in by_name.most_common(12):
         print(f"  {v / n:8.4f} ms/frame  {k[:110]}")
+    for k, v in summary["hand_written_ms_per_frame"].items():
+        print(f"  {v:8.4f} ms/frame  {k} (hand-written)")
 
     # --- stages of one 2-frame group, from the state after frame 1 ---
     calib = seq.calib.to(dev)
@@ -141,8 +159,20 @@ def main() -> int:
     fl, fr = (pipeline._image_features(feats, k) for k in (0, 1))
     _, out = pipeline._step_core(state, fl, fr, calib, cfg)
     lmap = landmarks.init_map(cfg.landmarks, dev)
+    # The pieces of detection that the hand-written kernels and the top-k after K1 account for.
+    s = cfg.sift
+    pyr = build_pyramid(imgs, s)
+    dogs = pyr.dog[: s.n_octaves]
+    levels = [G[:, 1 : s.scales_per_octave + 1] for G in pyr.gauss[: s.n_octaves]]
+    scores = kernels.extrema_scores_octaves(dogs, s.contrast_threshold)
+    caps = _octave_caps(s)
     stages = {
         "detect_and_describe (4 images)": lambda: detect_and_describe(imgs, cfg.sift),
+        "  K1 extrema_scores_octaves (1 launch)": lambda: kernels.extrema_scores_octaves(dogs, s.contrast_threshold),
+        "  topk after K1 (4 octaves, [4, 3*H*W] each)": lambda: [
+            torch.topk(sc.reshape(sc.shape[0], -1), k, dim=1) for sc, k in zip(scores, caps)
+        ],
+        "  K2 bin_maps_octaves (1 launch)": lambda: kernels.bin_maps_octaves(levels),
         "_step_core (1 frame)": lambda: pipeline._step_core(state, fl, fr, calib, cfg),
         "landmarks.insert (1 frame)": lambda: landmarks.insert(
             lmap, out.new_lm_l_px, out.new_lm_r_px, out.new_lm_mask, out.pose_c2w, calib, cfg.landmarks
@@ -184,6 +214,7 @@ def profile_refined(cfg: PipelineConfig, dev, card: str) -> int:
         device_idle_share=1.0 - (busy / n) / res.per_frame_ms,
         launches_per_frame=launches / n,
         top_kernels_ms_per_frame={k: v / n for k, v in by_name.most_common(12)},
+        hand_written_ms_per_frame={k: v / n for k, v in hand_written_ms(by_name).items()},
     )
     print(
         f"refined path: {res.per_frame_ms:.3f} ms/frame ({res.frames_per_sec:.2f} fps) untraced; device busy "
@@ -192,6 +223,8 @@ def profile_refined(cfg: PipelineConfig, dev, card: str) -> int:
     print(f"refine_stats {json.dumps(res.refine_stats, sort_keys=True)}")
     for k, v in by_name.most_common(12):
         print(f"  {v / n:8.4f} ms/frame  {k[:110]}")
+    for k, v in summary["hand_written_ms_per_frame"].items():
+        print(f"  {v:8.4f} ms/frame  {k} (hand-written)")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "profile_torch_step_refined.json"), "w") as f:
         json.dump(summary, f, indent=1)

@@ -7,8 +7,10 @@ built with ``nvcc`` at first use (``frontend/kernels.py``).
 
 Ported so far: ``odometry.runner.run_sequence`` on the plain path and on the
 refined path (window BA + loop closure through the background refiner), with
-no checkpoint/resume and no mesh. The package imports ``torch`` and never
-``jax``; it shares only the jax-free ``vo_tpu.config`` and ``vo_tpu.eval.metrics``.
+no checkpoint/resume and no mesh. The package imports ``torch``, never ``jax``
+and nothing of ``vo_tpu``: it keeps its own copies of the configuration and
+the trajectory metrics. Its entry points run on the CUDA card unless the
+caller passes ``device="cpu"`` (``utils.device.default_device``).
 
 Subpackages:
   geom      SE(3), stereo calibration, rectified triangulation
@@ -18,8 +20,8 @@ Subpackages:
   odometry  per-frame VO step, landmark store, sequence runner, window-BA runner, refiner
   ba        sliding-window bundle adjustment, host pose-graph solve
   slam      loop closure
-  eval      trajectory metrics (re-exported)
-  utils     fixed-capacity padding/masking, non-waiting host/device copies
+  eval      trajectory metrics
+  utils     fixed-capacity padding/masking, non-waiting host/device copies, the default device
 """
 
 __version__ = "0.1.0"

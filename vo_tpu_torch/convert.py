@@ -5,7 +5,10 @@ identical state can be put into both packages: ``to_numpy`` turns any port
 NamedTuple (or a reference one) into the same structure of numpy arrays, and
 the ``*_from_numpy`` functions take any object with the right field names
 holding array-likes (numpy, or the reference's jax arrays, which numpy reads
-without this module importing jax).
+without this module importing jax). Each takes the ``device`` its tensors go
+to: None is the current CUDA device (``utils.device.default_device``), and the
+CPU only when asked. ``config_from_reference`` copies a configuration of the
+reference's classes into the port's own, field by field.
 
 A VO engine carries no weights; what crosses between the packages is state:
 the VO step's, a window-BA problem, and the refiner's keyframes (window and
@@ -13,15 +16,19 @@ loop-closure archive), so that both packages get identical inputs.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from . import config as _config
 from .ba.window import BAProblem
 from .frontend.sift import Features
 from .frontend.track import StereoFeatures
 from .geom.camera import StereoCalib, calib_from_projections
 from .odometry.landmarks import LandmarkMap
 from .odometry.pipeline import VOState
+from .utils.device import resolve
 from .utils.host_copy import upload
 
 
@@ -47,8 +54,22 @@ def to_numpy(x):
     return np.asarray(x)
 
 
+def config_from_reference(cfg):
+    """The port's configuration class of the same name as ``type(cfg)``, with ``cfg``'s values.
+
+    ``cfg`` is any object with that class's attributes (the reference's config);
+    nested configurations are copied the same way, and a missing attribute raises.
+    """
+    cls = getattr(_config, type(cfg).__name__)
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = getattr(cfg, f.name)
+        kw[f.name] = config_from_reference(v) if dataclasses.is_dataclass(v) else v
+    return cls(**kw)
+
+
 def _t(a, device, dtype=None) -> torch.Tensor:
-    return torch.as_tensor(np.array(a, dtype=dtype), device=device)
+    return torch.as_tensor(np.array(a, dtype=dtype), device=resolve(device))
 
 
 def calib_from_numpy(c, device=None) -> StereoCalib:
@@ -80,7 +101,8 @@ def stereo_features_from_numpy(s, device=None) -> StereoFeatures:
 
 def state_from_numpy(s, device=None, seed: int = 0) -> VOState:
     """VOState from an object with prev, pose_c2w, prev_rel, frame_idx, next_id; a fresh generator from ``seed``."""
-    gen = torch.Generator(device=torch.device(device) if device is not None else "cpu")
+    device = resolve(device)
+    gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return VOState(
         prev=stereo_features_from_numpy(s.prev, device),
@@ -103,12 +125,13 @@ def lmap_from_numpy(m, device=None) -> LandmarkMap:
 def ba_problem_from_numpy(p, device=None) -> BAProblem:
     """BAProblem from a dict or an object with BAProblem's field names: float32 values, bool masks
     (uploaded without waiting, utils.host_copy.upload)."""
+    device = resolve(device)
     get = p.get if isinstance(p, dict) else (lambda k: getattr(p, k))
     out = {}
     for k in BAProblem._fields:
         a = np.asarray(get(k))
         t = torch.from_numpy(np.ascontiguousarray(a, bool if a.dtype == bool else np.float32))
-        out[k] = t if device is None else upload(t, device)
+        out[k] = upload(t, device)
     return BAProblem(**out)
 
 
@@ -143,5 +166,5 @@ def archived_keyframe_from_numpy(kf, device=None):
         mask=host[3],
         global_desc=None if gd is None else np.array(gd, np.float32),
         path_m=float(getattr(kf, "path_m", 0.0)),
-        dev=tuple(torch.from_numpy(h).to(device) for h in host),
+        dev=tuple(torch.from_numpy(h).to(resolve(device)) for h in host),
     )

@@ -1,7 +1,7 @@
 """Dense-map SIFT orientation + descriptor, batched over images (port of vo_tpu.frontend.dense_desc).
 
 Per pyramid level, gradient orientations are soft-binned into 8 channel maps,
-2x2 sum-pooled to stride 2 (kernel K2, ``kernels.bin_maps``) and blurred at
+2x2 sum-pooled to stride 2 (kernel K2, ``kernels.bin_maps_octaves``) and blurred at
 the descriptor-cell scale. A keypoint's orientation histogram and its 4x4x8
 descriptor are then a few bilinear ROW samples of those maps (8 contiguous
 channels per sample). See the reference module for the approximations this
@@ -19,9 +19,6 @@ from .pyramid import _const, blur_separable, gaussian_kernel_1d
 
 _NB = kernels.NB  # descriptor orientation bins
 _CELLS = 4  # 4x4 spatial cells
-
-# K2's plain version (the reference's _soft_bin_pool), batched: [B, H, W] -> [B, 8, H2, W2].
-_soft_bin_pool = kernels.soft_bin_pool_plain
 
 
 def _cell_weights() -> np.ndarray:
@@ -43,16 +40,18 @@ def _blur_maps(maps: torch.Tensor, sigma_rel: float) -> torch.Tensor:
     return blur_separable(maps, gaussian_kernel_1d(sigma_map))
 
 
-def build_bin_map_rows(G_levels: torch.Tensor, sigma_rels, use_pallas: bool = True) -> torch.Tensor:
+def build_bin_map_rows(G_levels: torch.Tensor, sigma_rels, use_pallas: bool = True, raw=None) -> torch.Tensor:
     """[B, L, H, W] Gaussian levels of one octave -> flat [B, L*H2*W2, 8] map rows.
 
-    ``use_pallas`` selects kernel K2 (on a CUDA tensor); otherwise, and on the
-    CPU, the plain version computes the pooled maps. The per-level blur is shared.
+    ``raw`` are the octave's unblurred pooled maps [B, L, 8, H2, W2] where the
+    caller already has them (one K2 launch for the pyramid). Otherwise they are
+    computed here: ``use_pallas`` selects kernel K2 (on a CUDA tensor, reading
+    the levels in place), else, and on the CPU, the plain version. The
+    per-level blur is shared.
     """
     B, L, H, W = G_levels.shape
-    flat = G_levels.reshape(B * L, H, W).contiguous()
-    raw = kernels.bin_maps(flat) if use_pallas else _soft_bin_pool(flat)
-    raw = raw.reshape(B, L, _NB, H // 2, W // 2)
+    if raw is None:
+        raw = kernels.bin_maps(G_levels) if use_pallas else kernels.bin_maps_plain(G_levels)
     rows = []
     for l in range(L):
         blurred = _blur_maps(raw[:, l], float(sigma_rels[l]))  # [B, 8, H2, W2]

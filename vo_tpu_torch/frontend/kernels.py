@@ -7,9 +7,12 @@ bounds its kernel). At first use the sources are compiled with ``nvcc`` into one
 shared library under ``build/vo_tpu_torch/`` (named by a hash of the sources and
 flags, so an edit rebuilds) and bound with ``ctypes``.
 
-Each wrapper takes its plain PyTorch version only for a tensor on the CPU; for a
-CUDA tensor it launches the kernel on the current stream or raises. ``LAUNCHES``
-counts the launches of each kernel.
+Each kernel takes every octave of a detection call in ONE launch
+(``extrema_scores_octaves``, ``bin_maps_octaves``); the one-octave wrappers
+(``extrema_scores``, ``bin_maps``) launch the same kernels on a list of one.
+Each wrapper takes its plain PyTorch version only for tensors on the CPU; for
+CUDA tensors it launches the kernel on the current stream or raises. ``LAUNCHES``
+counts the launches of each kernel (a call over several octaves is one launch).
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vo_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 NB = 8  # orientation bins of the dense descriptor maps
+MAX_OCTAVES = 8  # octaves one launch takes (kMaxOctaves in csrc/*.cu)
 
 # Kernel launches since the last reset_launches(), by wrapper name.
 LAUNCHES = {"extrema_scores": 0, "bin_maps": 0}
@@ -83,27 +87,54 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
+        ptrs = ctypes.POINTER(ctypes.c_void_p)
+        ints = ctypes.POINTER(ctypes.c_int)
+        longs = ctypes.POINTER(ctypes.c_longlong)
         lib.vo_extrema_scores.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+            ptrs, ptrs, ints, ints, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+            ctypes.c_void_p,
         ]
         lib.vo_extrema_scores.restype = ctypes.c_int
         lib.vo_bin_maps.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ptrs, ptrs, longs, longs, longs, ints, ints, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.vo_bin_maps.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _check_input(x: torch.Tensor, ndim: int, name: str) -> None:
+def _array(ctype, values):
+    return (ctype * len(values))(*values)
+
+
+def _check_octaves(xs, name: str, contiguous: bool) -> None:
+    """What the kernels take, on any device: 1..MAX_OCTAVES float32 tensors [B, L, H, W] with
+    one B and L and a unit stride along x (``contiguous``: no stride at all)."""
+    if not 1 <= len(xs) <= MAX_OCTAVES:
+        raise ValueError(f"{name}: expected 1..{MAX_OCTAVES} octaves, got {len(xs)}")
+    for x in xs:
+        ok = x.dtype == torch.float32 and x.ndim == 4 and x.shape[:2] == xs[0].shape[:2] and x.device == xs[0].device
+        ok = ok and (x.is_contiguous() if contiguous else x.stride(3) == 1)
+        if not ok:
+            raise ValueError(
+                f"{name}: expected float32 [B, L, H, W] tensors of one B, L and device, "
+                f"{'contiguous' if contiguous else 'with unit stride along x'}; got {x.dtype} {tuple(x.shape)} "
+                f"strides {x.stride()} on {x.device}"
+            )
+        if x.shape[0] * x.shape[1] > 65535 or x.shape[2] * x.shape[3] >= 2**31:
+            raise ValueError(f"{name}: {tuple(x.shape)} exceeds the launch grid")
+
+
+def _require_cuda(x: torch.Tensor, name: str) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{name}: expected a CPU or CUDA tensor, got device {x.device}")
-    if x.dtype != torch.float32 or x.ndim != ndim or not x.is_contiguous():
-        raise ValueError(
-            f"{name}: expected a contiguous float32 tensor of rank {ndim}, got "
-            f"{x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}"
-        )
+
+
+def _empty_octaves(shapes, device) -> list:
+    """One uninitialised float32 tensor per shape: views, back to back, of one allocation."""
+    sizes = [math.prod(shape) for shape in shapes]
+    flat = torch.empty(sum(sizes), dtype=torch.float32, device=device)
+    return [part.view(shape) for part, shape in zip(flat.split(sizes), shapes)]
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -132,23 +163,36 @@ def extrema_scores_plain(dog: torch.Tensor, thr: float, border: int = 5) -> torc
     return torch.where(valid, c.abs(), -1.0)
 
 
-def extrema_scores(dog: torch.Tensor, thr: float, border: int = 5) -> torch.Tensor:
-    """K1 wrapper: [B, L, H, W] -> [B, L-2, H, W] scores (see extrema_scores_plain)."""
-    if dog.device.type == "cpu":
-        return extrema_scores_plain(dog, thr, border)
-    _check_input(dog, 4, "extrema_scores")
-    B, L, H, W = dog.shape
-    if B == 0 or L < 3:
-        raise ValueError(f"extrema_scores: need B >= 1 and L >= 3 levels, got {tuple(dog.shape)}")
-    out = torch.empty((B, L - 2, H, W), dtype=torch.float32, device=dog.device)
-    with torch.cuda.device(dog.device):
+def extrema_scores_octaves(dogs, thr: float, border: int = 5) -> list:
+    """K1 wrapper over a pyramid: per-octave [B, L, H_o, W_o] DoG stacks -> per-octave
+    [B, L-2, H_o, W_o] scores (see extrema_scores_plain), all octaves in one launch."""
+    dogs = list(dogs)
+    if dogs and dogs[0].device.type == "cpu":
+        return [extrema_scores_plain(d, thr, border) for d in dogs]
+    _check_octaves(dogs, "extrema_scores", contiguous=True)
+    _require_cuda(dogs[0], "extrema_scores")
+    B, L = dogs[0].shape[:2]
+    if B == 0 or L < 3 or border < 0:
+        raise ValueError(f"extrema_scores: need B >= 1, L >= 3 levels and border >= 0, got {tuple(dogs[0].shape)}, {border}")
+    shapes = [(B, L - 2, d.shape[2], d.shape[3]) for d in dogs]
+    outs = _empty_octaves(shapes, dogs[0].device)
+    with torch.cuda.device(dogs[0].device):
         err = load().vo_extrema_scores(
-            dog.data_ptr(), out.data_ptr(), B, L, H, W, 0.5 * thr, border,
+            _array(ctypes.c_void_p, [d.data_ptr() for d in dogs]),
+            _array(ctypes.c_void_p, [o.data_ptr() for o in outs]),
+            _array(ctypes.c_int, [d.shape[2] for d in dogs]),
+            _array(ctypes.c_int, [d.shape[3] for d in dogs]),
+            len(dogs), B, L, 0.5 * thr, border,
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "extrema_scores")
     LAUNCHES["extrema_scores"] += 1
-    return out
+    return outs
+
+
+def extrema_scores(dog: torch.Tensor, thr: float, border: int = 5) -> torch.Tensor:
+    """K1 wrapper, one octave: [B, L, H, W] -> [B, L-2, H, W] scores (see extrema_scores_plain)."""
+    return extrema_scores_octaves([dog], thr, border)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -182,19 +226,44 @@ def soft_bin_pool_plain(G: torch.Tensor) -> torch.Tensor:
     return maps.permute(0, 3, 1, 2).contiguous()
 
 
-def bin_maps(G: torch.Tensor) -> torch.Tensor:
-    """K2 wrapper: [B, H, W] -> [B, 8, H//2, W//2] (see soft_bin_pool_plain)."""
-    if G.device.type == "cpu":
-        return soft_bin_pool_plain(G)
-    _check_input(G, 3, "bin_maps")
-    B, H, W = G.shape
-    if B == 0 or H < 2 or W < 2:
-        raise ValueError(f"bin_maps: need B >= 1 and H, W >= 2, got {tuple(G.shape)}")
-    out = torch.empty((B, NB, H // 2, W // 2), dtype=torch.float32, device=G.device)
-    with torch.cuda.device(G.device):
+def bin_maps_plain(levels: torch.Tensor) -> torch.Tensor:
+    """soft_bin_pool_plain over [B, L, H, W] -> [B, L, 8, H//2, W//2]."""
+    B, L, H, W = levels.shape
+    return soft_bin_pool_plain(levels.reshape(B * L, H, W)).reshape(B, L, NB, H // 2, W // 2)
+
+
+def bin_maps_octaves(levels) -> list:
+    """K2 wrapper over a pyramid: per-octave [B, L, H_o, W_o] Gaussian levels -> per-octave
+    [B, L, 8, H_o//2, W_o//2] pooled soft-bin maps (see soft_bin_pool_plain), all octaves in
+    one launch. The levels are read in place: any strides with a unit stride along x, so a
+    slice of levels such as ``G[:, 1:4]`` needs no copy."""
+    levels = list(levels)
+    if levels and levels[0].device.type == "cpu":
+        return [bin_maps_plain(g) for g in levels]
+    _check_octaves(levels, "bin_maps", contiguous=False)
+    _require_cuda(levels[0], "bin_maps")
+    B, L = levels[0].shape[:2]
+    if B == 0 or L == 0 or any(g.shape[2] < 2 or g.shape[3] < 2 for g in levels):
+        raise ValueError(f"bin_maps: need B, L >= 1 and H, W >= 2, got {[tuple(g.shape) for g in levels]}")
+    shapes = [(B, L, NB, g.shape[2] // 2, g.shape[3] // 2) for g in levels]
+    outs = _empty_octaves(shapes, levels[0].device)
+    with torch.cuda.device(levels[0].device):
         err = load().vo_bin_maps(
-            G.data_ptr(), out.data_ptr(), B, H, W, torch.cuda.current_stream().cuda_stream
+            _array(ctypes.c_void_p, [g.data_ptr() for g in levels]),
+            _array(ctypes.c_void_p, [o.data_ptr() for o in outs]),
+            *(_array(ctypes.c_longlong, [g.stride(d) for g in levels]) for d in (0, 1, 2)),
+            _array(ctypes.c_int, [g.shape[2] for g in levels]),
+            _array(ctypes.c_int, [g.shape[3] for g in levels]),
+            len(levels), B, L,
+            torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "bin_maps")
     LAUNCHES["bin_maps"] += 1
-    return out
+    return outs
+
+
+def bin_maps(G: torch.Tensor) -> torch.Tensor:
+    """K2 wrapper, one octave: [B, L, H, W] -> [B, L, 8, H//2, W//2], or [B, H, W] -> [B, 8, H//2, W//2]."""
+    if G.ndim == 3:
+        return bin_maps_octaves([G[:, None]])[0][:, 0]
+    return bin_maps_octaves([G])[0]

@@ -1,11 +1,12 @@
 """SIFT-style detection + dense description over a batch of images (port of vo_tpu.frontend.sift).
 
 The fast path of the reference (``fast_descriptor=True``): dense 3x3x3 DoG
-extrema scores (kernel K1, ``kernels.extrema_scores``), an exact per-octave
-``torch.topk``, vectorised quadratic subpixel refinement, a global top-k by
-response, then orientation histograms and descriptors from the dense bin maps
-(kernel K2 inside ``dense_desc.build_bin_map_rows``). Every set is a fixed
-capacity (``max_keypoints``) with a validity mask.
+extrema scores (kernel K1, one ``kernels.extrema_scores_octaves`` launch for the
+whole pyramid), an exact per-octave ``torch.topk``, vectorised quadratic
+subpixel refinement, a global top-k by response, then orientation histograms
+and descriptors from the dense bin maps (kernel K2, one
+``kernels.bin_maps_octaves`` launch, blurred by ``dense_desc.build_bin_map_rows``).
+Every set is a fixed capacity (``max_keypoints``) with a validity mask.
 """
 from __future__ import annotations
 
@@ -30,17 +31,24 @@ class Features(NamedTuple):
     mask: torch.Tensor  # [..., K] bool
 
 
-def _find_candidates(dog: torch.Tensor, cfg: SIFTConfig, k_cap: int, border: int = 5, use_pallas: bool = True):
+def _scores(dogs: list, cfg: SIFTConfig, border: int, use_pallas: bool) -> list:
+    """Extrema scores of every octave: kernel K1 in one launch, or its plain version."""
+    if use_pallas:
+        return kernels.extrema_scores_octaves(dogs, cfg.contrast_threshold, border)
+    return [kernels.extrema_scores_plain(d, cfg.contrast_threshold, border) for d in dogs]
+
+
+def _find_candidates(dog: torch.Tensor, cfg: SIFTConfig, k_cap: int, border: int = 5, use_pallas: bool = True, scores=None):
     """Extrema scores + exact top-k on one octave's [B, S+2, H, W] DoG stacks.
 
-    Returns (level, y, x, score, valid), each [B, k_cap]; level indexes the
-    DoG stack (inner levels 1..S).
+    ``scores`` are the octave's [B, S, H, W] extrema scores where the caller
+    already has them (one launch for the pyramid); otherwise they are computed
+    here. Returns (level, y, x, score, valid), each [B, k_cap]; level indexes
+    the DoG stack (inner levels 1..S).
     """
     B, _, H, W = dog.shape
-    if use_pallas:
-        scores = kernels.extrema_scores(dog, cfg.contrast_threshold, border)
-    else:
-        scores = kernels.extrema_scores_plain(dog, cfg.contrast_threshold, border)
+    if scores is None:
+        scores = _scores([dog], cfg, border, use_pallas)[0]
     top, idx = torch.topk(scores.reshape(B, -1), k_cap, dim=1)
     lvl = idx // (H * W) + 1  # scores hold inner levels only
     rem = idx % (H * W)
@@ -115,9 +123,11 @@ class _Candidates(NamedTuple):
 def _detect_candidates(pyr: Pyramid, cfg: SIFTConfig) -> _Candidates:
     """Extrema + subpixel refinement for every octave (detection phase only)."""
     fields = {k: [] for k in _Candidates._fields}
+    border = 5
+    scores = _scores(pyr.dog[: cfg.n_octaves], cfg, border, cfg.use_pallas)
     for o in range(cfg.n_octaves):
         dog = pyr.dog[o]
-        lvl, ys, xs, _, valid = _find_candidates(dog, cfg, _octave_caps(cfg)[o], use_pallas=cfg.use_pallas)
+        lvl, ys, xs, _, valid = _find_candidates(dog, cfg, _octave_caps(cfg)[o], border, scores=scores[o])
         dx, dy, ds, contrast, ok = _refine(dog, lvl, ys, xs, cfg)
         lf = lvl.to(torch.float32) + ds
         fields["octave"].append(torch.full_like(lvl, o))
@@ -190,10 +200,13 @@ def detect_and_describe(img: torch.Tensor, cfg: SIFTConfig) -> Features:
     s = cfg.scales_per_octave
     rows, oct_off, H2s, W2s = [], [], [], []
     off = 0
+    # Levels 1..s of every octave, read where they lie (views, no copy): kernel K2 in one launch.
+    levels = [G[:, 1 : s + 1] for G in pyr.gauss[: cfg.n_octaves]]
+    raws = kernels.bin_maps_octaves(levels) if cfg.use_pallas else [None] * len(levels)
     for o in range(cfg.n_octaves):
         G = pyr.gauss[o]
         H2, W2 = G.shape[2] // 2, G.shape[3] // 2
-        rows.append(dense_desc.build_bin_map_rows(G[:, 1 : s + 1], sig[1 : s + 1], use_pallas=cfg.use_pallas))
+        rows.append(dense_desc.build_bin_map_rows(levels[o], sig[1 : s + 1], use_pallas=cfg.use_pallas, raw=raws[o]))
         oct_off.append(off)
         off += s * H2 * W2
         H2s.append(H2)

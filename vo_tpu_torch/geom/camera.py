@@ -11,6 +11,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.device import resolve
+
 
 class StereoCalib(NamedTuple):
     """Rectified stereo calibration derived from two 3x4 projection matrices."""
@@ -29,11 +31,13 @@ class StereoCalib(NamedTuple):
 
 
 def calib_from_projections(P1, P2, image_size=(376, 1241), device=None) -> StereoCalib:
-    """Derive scalar intrinsics + baseline like VO.m:35-48, in float32."""
-    P1 = torch.tensor(np.asarray(P1, dtype=np.float32), device=device)
-    P2 = torch.tensor(np.asarray(P2, dtype=np.float32), device=device)
-    p1 = P1.cpu()
-    p2 = P2.cpu()
+    """Derive scalar intrinsics + baseline like VO.m:35-48, in float32; the projection
+    matrices go to ``device`` (None: the current CUDA device)."""
+    device = resolve(device)
+    p1 = torch.tensor(np.asarray(P1, dtype=np.float32))
+    p2 = torch.tensor(np.asarray(P2, dtype=np.float32))
+    P1 = p1.to(device)
+    P2 = p2.to(device)
     fu1 = p1[0, 0]
     bx1 = -p1[0, 3] / fu1
     bx2 = -p2[0, 3] / p2[0, 0]

@@ -26,7 +26,8 @@ def read_calib(path: str) -> dict:
 def load_stereo_calib(seq_dir: str, image_size=(376, 1241)) -> StereoCalib:
     """Left/right gray-pair calibration like VO.m:24-51 (P0 = left, P1 = right)."""
     c = read_calib(os.path.join(seq_dir, "calib.txt"))
-    return calib_from_projections(c["P0"], c["P1"], image_size=image_size)
+    # A feed is host data: the runner moves its calibration to the device it runs on.
+    return calib_from_projections(c["P0"], c["P1"], image_size=image_size, device="cpu")
 
 
 def read_times(path: str) -> np.ndarray:

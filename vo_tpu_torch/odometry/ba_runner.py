@@ -27,6 +27,7 @@ from ..ba.window import BAProblem, solve_window
 from ..config import BAConfig
 from ..convert import ba_problem_from_numpy
 from ..geom.camera import StereoCalib
+from ..utils.device import resolve
 from ..utils.host_copy import HostCopy
 
 
@@ -142,10 +143,10 @@ class WindowAssociator:
 class WindowedBA:
     """Keyframe window + device solver; returns pose corrections."""
 
-    def __init__(self, calib: StereoCalib, cfg: BAConfig, device="cpu"):
+    def __init__(self, calib: StereoCalib, cfg: BAConfig, device=None):
         self.calib = calib.to("cpu")  # the window assembly reads it on the host
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self._calib_dev = calib.to(self.device)
         self.window: deque = deque(maxlen=cfg.window)
         self.n_rejected = 0  # solves discarded by the correction sanity gate

@@ -21,6 +21,7 @@ from ..config import LandmarkConfig
 from ..geom import se3
 from ..geom.camera import StereoCalib
 from ..geom.triangulate import triangulate_rectified
+from ..utils.device import resolve
 from ..utils.padding import compact_indices
 
 
@@ -31,6 +32,8 @@ class LandmarkMap(NamedTuple):
 
 
 def init_map(cfg: LandmarkConfig, device=None) -> LandmarkMap:
+    """An empty map on ``device`` (None: the current CUDA device)."""
+    device = resolve(device)
     z = torch.zeros((), dtype=torch.int64, device=device)
     return LandmarkMap(xyz=torch.zeros((cfg.capacity, 3), dtype=torch.float32, device=device), count=z, dropped=z.clone())
 

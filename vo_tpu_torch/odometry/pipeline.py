@@ -21,6 +21,7 @@ from ..geom import se3
 from ..geom.camera import StereoCalib
 from ..geom.triangulate import triangulate_rectified
 from ..pose.ransac import estimate_world_pose
+from ..utils.device import resolve
 from ..utils.padding import gather_rows
 
 
@@ -50,6 +51,8 @@ class FrameOutput(NamedTuple):
 
 
 def init_state(cfg: PipelineConfig, seed: int = 0, device=None) -> VOState:
+    """The state before frame 0, on ``device`` (None: the current CUDA device)."""
+    device = resolve(device)
     c = cfg.max_tracks
     z2 = torch.zeros((c, 2), dtype=torch.float32, device=device)
     zd = torch.zeros((c, 128), dtype=torch.float32, device=device)
@@ -62,7 +65,7 @@ def init_state(cfg: PipelineConfig, seed: int = 0, device=None) -> VOState:
         ids=torch.full((c,), -1, dtype=torch.int32, device=device),
     )
     eye = torch.eye(4, dtype=torch.float32, device=device)
-    gen = torch.Generator(device=torch.device(device) if device is not None else "cpu")
+    gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return VOState(
         prev=prev,

@@ -34,6 +34,7 @@ import torch
 
 from ..config import PipelineConfig
 from ..geom.camera import StereoCalib
+from ..utils.device import resolve
 from ..utils.host_copy import HostCopy
 
 
@@ -119,11 +120,11 @@ class RefinerWorker:
         cfg: PipelineConfig,
         use_ba: bool,
         use_loop_closure: bool,
-        device="cpu",
+        device=None,
     ):
         self.calib = calib
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.wba = None

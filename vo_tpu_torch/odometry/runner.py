@@ -32,6 +32,7 @@ import torch
 
 from ..config import PipelineConfig
 from ..frontend.match import match
+from ..utils.device import resolve
 from ..utils.host_copy import upload
 from . import landmarks as lm_mod
 from .correction import reanchor_trajectory, rebuild_rel_poses
@@ -169,9 +170,10 @@ def run_sequence(
     viz_dir: Optional[str] = None,
     verbose: bool = False,
     mesh=None,
-    device="cpu",
+    device=None,
 ) -> RunResult:
-    """Run VO over ``seq`` (``frame(i) -> (left, right)``, ``calib``, ``len``) on ``device``.
+    """Run VO over ``seq`` (``frame(i) -> (left, right)``, ``calib``, ``len``) on ``device``
+    (None: the current CUDA device; the CPU only when asked, ``device="cpu"``).
 
     ``insert_landmarks`` defaults to cfg.view_3d (the reference's single flag,
     VO.m:6/145). Frames may be numpy images or tensors already on the device.
@@ -185,7 +187,7 @@ def run_sequence(
         viz=viz_every > 0 or viz_dir is not None,
         mesh=mesh is not None,
     )
-    device = torch.device(device)
+    device = resolve(device)
     # Full float32 everywhere: the geometry needs it (ransac module docstring),
     # and reduced precision in the pyramid flickers detections.
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -38,6 +38,7 @@ from ..frontend.match import match
 from ..geom.camera import StereoCalib
 from ..geom.triangulate import triangulate_rectified
 from ..pose.ransac import estimate_world_pose
+from ..utils.device import resolve
 from ..utils.host_copy import HostCopy, upload
 
 logger = logging.getLogger(__name__)
@@ -81,9 +82,9 @@ class LoopCloser:
         cfg: LoopConfig,
         ransac: RansacConfig | None = None,
         matcher: MatcherConfig | None = None,
-        device="cpu",
+        device=None,
     ):
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self.calib = calib.to(self.device)
         self.cfg = cfg
         self.ransac = ransac or RansacConfig(n_hypotheses=256)
