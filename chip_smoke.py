@@ -7,12 +7,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   1. the card's name and power limit (needs CUDA);
   2. build the hand-written kernels from vo_tpu_torch/csrc with nvcc;
   3. K1 (extrema_scores) and K2 (bin_maps) against their plain PyTorch versions
-     on the pyramids of rendered full-size frames, at the main path's shapes:
-     octave by octave (K1 must be exact, K2 within 1e-5, reading the level
-     slice G[:, 1:4] in place), then the whole detection call in one launch
-     per kernel, which must equal the per-octave results bit for bit. The
-     one-launch call is timed with a 1 GiB buffer cleared before each launch
-     (inputs cold in L2; the events are queued while the clear still runs, so
+     on the pyramids of rendered full-size frames, at the shapes the driven
+     paths give them, for both detection batches: 2 images (one frame's left
+     and right: the refined, resumed and per-frame host paths step frame by
+     frame) and 4 images (one group of the deferred plain path, and the
+     exact-SIFT call). Octave by octave (K1 must be exact, K2 within 1e-5,
+     reading the level slice G[:, 1:4] in place), then the whole detection
+     call in one launch per kernel, which must equal the per-octave results
+     bit for bit. At 4 images the one-launch call is timed with a 1 GiB
+     buffer cleared before each launch (inputs cold in L2; the events are queued while the clear still runs, so
      the reading is the kernel's and not the host's launch latency), median
      of 25; the same way octave 0 alone, the four per-octave launches, and a
      device copy that moves the kernel's bytes (what the memory system gives a
@@ -29,18 +32,57 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   5. the refined path, run_sequence(use_ba=True, use_loop_closure=True), at the
      default PipelineConfig over a 199-frame out-and-back feed (KITTI-00 GT
      poses 0..99 then 98..0, 376x1241, 6000 landmarks, seed 0, noise 0): plain
-     VO once, the refined path once warm and once timed with the launch
-     counters reset. Fails on a non-finite pose, a wrong pose count, keyframes
+     VO once, then the refined path once, timed, with the launch counters
+     reset (the refiner's own warm-ups run before its timed loop). Fails on a non-finite pose, a wrong pose count, keyframes
      != 39, no window solve, no verified loop candidate, refined ATE > plain
      ATE + 0.02 m, plain ATE > 0.15 m, or a kernel the timed run never launched;
   6. a loop closure that fires on the card: every 5th frame of the phase-5 feed
      from frame 5 on, detected and stereo-matched on the card, archived in a
      default-config LoopCloser with its GT pose drifted +0.1 m in x per
      keyframe. Fails unless a closure fires and the newest keyframe of the loop
-     ends closer to its GT pose than half its drifted error.
+     ends closer to its GT pose than half its drifted error;
+  7. resume on the card. On the phase-5 feed: an uninterrupted refined run on
+     the non-deferred path (``progress`` given) against phase 5's refined run
+     tells whether the card repeats a run bit for bit (the refined path steps
+     frame by frame either way; a host read per frame must change nothing);
+     then a run to frame 100 with a checkpoint there and a
+     resumed run to 199. Where the card repeats itself the resumed run must
+     equal the uninterrupted one exactly (poses, n_inliers, pose_ok, keyframes,
+     window solves, verified candidates); where it does not, within ten times
+     the measured run-to-run difference, and both are printed. The checkpoint's
+     bytes and the seconds ``save`` and ``load`` take are printed. The same for
+     plain VO on the 30-frame feed (checkpoint at 15, two non-deferred
+     uninterrupted runs);
+  8. the per-frame host paths: the 30-frame feed with ``progress`` and
+     ``metrics_path``. Fails unless there are 30 JSONL rows with the reference's
+     keys, the callback's values equal the result's rows, and the poses equal
+     those of the deferred single-frame run (exactly where the card repeats
+     itself) and phase 4's grouped run within 1e-3. Prints fps beside both
+     (the ratio is the cost of one host read per frame) and the percentiles of
+     ``frame_ms``, which include that wait; then ``utils.debug`` on the card:
+     the launches per frame of a short deferred run, and a run under ``nan_debug``;
+  9. the exact-SIFT oracle path (``fast_descriptor=False``): one detection call
+     on phase 3's four images must launch K1 once and K2 never, return the fast
+     path's keypoints (same masks, xy within 1e-4, one orientation each) and
+     agree with the same call on the CPU (>= 95% of the keypoints shared within
+     0.01 px and 0.01 rad, their descriptors within 2e-3); then the 30-frame run
+     on that path (ATE <= 0.05 m, pose_ok >= 28/29), with fps and ms per detection
+     call between CUDA events beside the fast path's (where the host needs
+     longer to enqueue the call than the card to run it, that reading is the
+     host's; tools/profile_torch_step.py --exact reads the device time);
+ 10. the shell surface, as subprocesses that pick the card themselves:
+     ``python -m vo_tpu_torch run --synthetic --frames 12 --ba --loop-closure
+     --checkpoint-every 8``, the same with ``--resume`` (steps frames 8-11) and
+     ``eval`` on the result; a 10-frame KITTI directory (the committed calib,
+     times.txt, 8-bit PNGs of rendered frames) through ``StereoSequence`` and
+     ``run --data``, whose poses must equal the same frames fed from memory;
+     and ``Undistorter`` on a staged frame against the CPU (1e-5; the identity
+     model returns its input). Figures are asserted only where matplotlib is
+     installed.
 The line before the last is a JSON summary of the kernels: ``launches`` summed
-over the timed runs of phases 4 and 5, ``ms`` the one-launch detection call
-with cold inputs, ``octave0_ms``, ``per_octave_launches_ms`` and
+over the counted runs of phases 4, 5, 7, 8 and 9 (``launches_by_path`` has each;
+the counters are reset just before each path and read just after), ``max_abs_err`` the larger of the two batches' (``max_abs_err_by_batch`` has
+each), ``ms`` the one-launch detection call of 4 images with cold inputs, ``octave0_ms``, ``per_octave_launches_ms`` and
 ``copy_same_bytes_ms`` timed the same way, ``back_to_back_ms``, ``plain_ms``
 the plain version over the four octaves, ``bound_ms`` / ``bound_by`` /
 ``share_of_bound`` (bound over ``ms``), ``launches_per_detect_call`` counted
@@ -49,10 +91,16 @@ computes either function. The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
+import importlib.util
 import json
+import os
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -63,10 +111,11 @@ from vo_tpu_torch.frontend import kernels
 from vo_tpu_torch.frontend.pyramid import build_pyramid
 from vo_tpu_torch.frontend.sift import detect_and_describe
 from vo_tpu_torch.frontend.track import stereo_features_with_matches
-from vo_tpu_torch.io import kitti, synthetic
-from vo_tpu_torch.odometry import runner
+from vo_tpu_torch.io import kitti, synthetic, undistort
+from vo_tpu_torch.odometry import checkpoint, runner
 from vo_tpu_torch.odometry.refiner import global_desc
 from vo_tpu_torch.slam.loop_closure import ArchivedKeyframe, LoopCloser
+from vo_tpu_torch.utils import debug
 
 N_FRAMES = 30
 N_LANDMARKS = 6000
@@ -86,6 +135,13 @@ OUT_FRAMES = 100  # phase 5: GT poses 0..99 out, 98..0 back
 PLAIN_ATE_MAX_M = 0.15
 REFINED_ATE_SLACK_M = 0.02
 DRIFT_PER_KF_M = 0.1  # phase 6
+GROUPED_POSE_TOL = 1e-3  # phase 8: a 2-frame group's batched detection against single frames
+EXACT_XY_TOL = 1e-4  # phase 9: exact against fast keypoints (tests/test_fast_frontend.py)
+EXACT_CPU_XY, EXACT_CPU_ORI, EXACT_CPU_DESC, EXACT_CPU_SHARED = 1e-2, 1e-2, 2e-3, 0.95  # phase 9: card against CPU
+UNDISTORT_TOL = 1e-5  # phase 10
+SUBPROCESS_TIMEOUT_S = 400
+METRICS_KEYS = {"frame", "n_tracks", "n_inliers", "inlier_ratio", "pose_ok", "mean_reproj_err", "frame_ms"}
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 KERNELS = {
     "extrema_scores": dict(
@@ -148,13 +204,13 @@ def bound(n_bytes: int, n_flop: int) -> dict:
     return dict(bound_ms=max(by_bytes, by_ops), bound_by="bytes" if by_bytes >= by_ops else "operations", bytes=n_bytes, flop=n_flop)
 
 
-def check_kernels(feed: runner.StagedSequence, cfg: PipelineConfig) -> dict:
-    """Phase 3: each kernel against its plain version at the main path's shapes, octave by octave and
-    as the one launch per detection call; times, bounds and launches per detection call."""
+def against_plain(imgs: torch.Tensor, cfg: PipelineConfig, time_plain: bool) -> dict:
+    """Both kernels against their plain versions on the pyramid of ``imgs`` ([B, H, W]), octave by
+    octave (K1 exact, K2 within K2_TOL), then the whole detection call in one launch per kernel,
+    which must equal the per-octave results bit for bit -> the pyramid views, the errors and,
+    with ``time_plain``, the plain versions' times summed over the octaves."""
     s = cfg.sift
     thr = s.contrast_threshold
-    # One group program's detection batch: the left and right images of fused_group frames.
-    imgs = torch.stack([im for i in range(cfg.fused_group) for im in feed.frame(i)]).float() / 255.0
     pyr = build_pyramid(imgs, s)
     dogs = pyr.dog[: s.n_octaves]
     levels = [G[:, 1 : s.scales_per_octave + 1] for G in pyr.gauss[: s.n_octaves]]  # views, read in place
@@ -170,15 +226,44 @@ def check_kernels(feed: runner.StagedSequence, cfg: PipelineConfig) -> dict:
             got = kern()
             torch.cuda.synchronize()
             err = float((got - plain()).abs().max())
-            plain_ms = median_ms(plain)
+            plain_ms = median_ms(plain) if time_plain else 0.0
             per_octave[name].append(got)
             stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
             stats[name]["plain_ms"] += plain_ms
-            print(f"  {name} octave {o} in {tuple(x.shape)} strides {x.stride()}: max|kernel-plain| {err:.3e}  plain {plain_ms:.4f} ms")
+            print(f"  {name} octave {o} in {tuple(x.shape)} strides {x.stride()}: max|kernel-plain| {err:.3e}"
+                  + (f"  plain {plain_ms:.4f} ms" if time_plain else ""))
     if stats["extrema_scores"]["max_abs_err"] != 0.0:
-        raise AssertionError(f"K1 extrema_scores differs from its plain version: {stats['extrema_scores']}")
+        raise AssertionError(f"K1 extrema_scores differs from its plain version at batch {imgs.shape[0]}: {stats['extrema_scores']}")
     if not stats["bin_maps"]["max_abs_err"] <= K2_TOL:
-        raise AssertionError(f"K2 bin_maps exceeds {K2_TOL}: {stats['bin_maps']}")
+        raise AssertionError(f"K2 bin_maps exceeds {K2_TOL} at batch {imgs.shape[0]}: {stats['bin_maps']}")
+    one_launch = {"extrema_scores": kernels.extrema_scores_octaves(dogs, thr), "bin_maps": kernels.bin_maps_octaves(levels)}
+    torch.cuda.synchronize()
+    for name, got in one_launch.items():
+        if not all(torch.equal(a, b) for a, b in zip(got, per_octave[name])):
+            raise AssertionError(f"{name}: the one-launch detection call differs from the per-octave launches at batch {imgs.shape[0]}")
+    return dict(dogs=dogs, levels=levels, stats=stats)
+
+
+def check_kernels(feed: runner.StagedSequence, cfg: PipelineConfig) -> dict:
+    """Phase 3: each kernel against its plain version at every detection batch the driven paths
+    produce, octave by octave and as the one launch per detection call; at the group's batch also
+    times, bounds and launches per detection call."""
+    s = cfg.sift
+    thr = s.contrast_threshold
+    # The frame-by-frame paths (refined, resumed, per-frame host) detect on one frame's left and
+    # right image; the deferred plain path on the images of fused_group frames.
+    pair = torch.stack(list(feed.frame(0))).float() / 255.0
+    print(f"  detection batch of {pair.shape[0]} images (the frame-by-frame paths):")
+    by_pair = against_plain(pair, cfg, time_plain=False)["stats"]
+    imgs = torch.stack([im for i in range(cfg.fused_group) for im in feed.frame(i)]).float() / 255.0
+    print(f"  detection batch of {imgs.shape[0]} images (one group of the deferred path):")
+    found = against_plain(imgs, cfg, time_plain=True)
+    dogs, levels, stats = found["dogs"], found["levels"], found["stats"]
+    for name in KERNELS:
+        stats[name]["max_abs_err_by_batch"] = {
+            str(pair.shape[0]): by_pair[name]["max_abs_err"], str(imgs.shape[0]): stats[name]["max_abs_err"]
+        }
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], by_pair[name]["max_abs_err"])
 
     # (the detection call in one launch, the same work as one launch per octave)
     calls = {
@@ -199,10 +284,6 @@ def check_kernels(feed: runner.StagedSequence, cfg: PipelineConfig) -> dict:
     }
     flush = torch.empty(1 << 30, dtype=torch.uint8, device=imgs.device)
     for name, (call, octave_by_octave) in calls.items():
-        got = call()
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(got, per_octave[name])):
-            raise AssertionError(f"{name}: the one-launch detection call differs from the per-octave launches")
         st = stats[name]
         st["back_to_back_ms"] = back_to_back_ms(call)
         st["ms"] = cold_ms(call, flush)
@@ -222,12 +303,15 @@ def check_kernels(feed: runner.StagedSequence, cfg: PipelineConfig) -> dict:
             f"by {st['bound_by']} ({st['bytes'] / 1e6:.1f} MB, {st['flop'] / 1e6:.0f} Mflop), share of bound {st['share_of_bound']:.3f}"
         )
     del flush
-    kernels.reset_launches()
-    detect_and_describe(imgs, s)
-    for name in KERNELS:
-        stats[name]["launches_per_detect_call"] = kernels.LAUNCHES[name]
-        if kernels.LAUNCHES[name] != 1:
-            raise AssertionError(f"{name}: {kernels.LAUNCHES[name]} launches in one detection call, expected 1")
+    for batch in (pair, imgs):
+        kernels.reset_launches()
+        detect_and_describe(batch, s)
+        for name in KERNELS:
+            stats[name]["launches_per_detect_call"] = kernels.LAUNCHES[name]
+            if kernels.LAUNCHES[name] != 1:
+                raise AssertionError(
+                    f"{name}: {kernels.LAUNCHES[name]} launches in one detection call on {batch.shape[0]} images, expected 1"
+                )
     return stats
 
 
@@ -254,12 +338,11 @@ class OutAndBackFeed:
         return self.frames[i]
 
 
-def refined_path(feed: OutAndBackFeed, cfg: PipelineConfig, device) -> dict:
-    """Phase 5: plain VO and the refined path over the out-and-back feed."""
+def refined_path(feed: OutAndBackFeed, cfg: PipelineConfig, device):
+    """Phase 5: plain VO and the refined path over the out-and-back feed -> (launches, the refined result)."""
     n = len(feed)
     gt = feed.gt_poses
     plain = runner.run_sequence(feed, cfg, device=device)
-    runner.run_sequence(feed, cfg, use_ba=True, use_loop_closure=True, device=device)  # warm
     kernels.reset_launches()
     res = runner.run_sequence(feed, cfg, use_ba=True, use_loop_closure=True, device=device)
     launches = dict(kernels.LAUNCHES)
@@ -290,7 +373,7 @@ def refined_path(feed: OutAndBackFeed, cfg: PipelineConfig, device) -> dict:
     for k, v in launches.items():
         if v <= 0:
             raise AssertionError(f"kernel {k} was not launched by the refined path")
-    return launches
+    return launches, res
 
 
 def closure_fires(feed: OutAndBackFeed, cfg: PipelineConfig, device) -> None:
@@ -333,6 +416,300 @@ def closure_fires(feed: OutAndBackFeed, cfg: PipelineConfig, device) -> None:
         raise AssertionError(f"closure left the newest loop keyframe {err} m off, not under half of {err_drift} m")
 
 
+def no_progress(i, info) -> None:
+    """A per-frame consumer that does nothing: it only takes a run off the deferred path."""
+
+
+def counted(launches_by_path: dict, path: str, fn):
+    """fn() with the kernels' launch counters set to 0 just before and read just after."""
+    kernels.reset_launches()
+    out = fn()
+    launches_by_path[path] = dict(kernels.LAUNCHES)
+    return out
+
+
+def max_diff(a: runner.RunResult, b: runner.RunResult) -> float:
+    return float(np.abs(a.poses.astype(np.float64) - b.poses.astype(np.float64)).max()) if a.poses.size else 0.0
+
+
+def require_same_run(a: runner.RunResult, b: runner.RunResult, run_to_run: float, what: str) -> float:
+    """``a`` against ``b``: equal bit for bit where the card repeats a run (``run_to_run`` 0), else
+    poses within ten times the run-to-run difference. Returns the difference."""
+    d = max_diff(a, b)
+    if a.poses.shape != b.poses.shape:
+        raise AssertionError(f"{what}: pose counts differ, {a.poses.shape} against {b.poses.shape}")
+    if run_to_run == 0.0:
+        for k in ("poses", "n_inliers", "pose_ok"):
+            if not np.array_equal(getattr(a, k), getattr(b, k)):
+                raise AssertionError(f"{what}: {k} differs (max |pose difference| {d})")
+    elif not d <= 10.0 * run_to_run:
+        raise AssertionError(f"{what}: poses differ by {d}, over ten times the run-to-run difference {run_to_run}")
+    return d
+
+
+def resume_on_the_card(feed, cfg: PipelineConfig, device, at: int, tmp: str, launches_by_path: dict, refined: bool,
+                       again: runner.RunResult = None) -> dict:
+    """Phase 7, one path: is an uninterrupted run repeatable, and does a run resumed from the
+    checkpoint of frame ``at`` reproduce it? ``again`` is an earlier uninterrupted run of the same
+    path over ``feed`` to stand for the second one (it is made here when None)."""
+    n = len(feed)
+    name = "refined" if refined else "plain"
+    kw = dict(use_ba=refined, use_loop_closure=refined, device=device, progress=no_progress)
+    t = time.perf_counter()
+    full = runner.run_sequence(feed, cfg, **kw)
+    two_runs = "both non-deferred" if again is None else "this non-deferred one and the earlier deferred one"
+    if again is None:
+        again = runner.run_sequence(feed, cfg, **kw)
+    run_to_run = max_diff(full, again)
+    if full.poses.shape != again.poses.shape:
+        raise AssertionError(f"two uninterrupted {name} runs: {full.poses.shape} against {again.poses.shape} poses")
+    ck = os.path.join(tmp, f"ck_{name}.npz")
+    runner.run_sequence(feed, cfg, n_frames=at, checkpoint_path=ck, checkpoint_every=at, **kw)
+    size = os.path.getsize(ck)
+    t_load = time.perf_counter()
+    loaded = checkpoint.load(ck, device)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t_load
+    t_save = time.perf_counter()
+    checkpoint.save(
+        os.path.join(tmp, f"ck_{name}_again.npz"), loaded.state, loaded.lmap, loaded.poses, loaded.rel_poses,
+        loaded.frame_idx, stats=(loaded.n_inliers, loaded.n_tracks, loaded.pose_ok), refiner_state=loaded.refiner,
+    )
+    t_save = time.perf_counter() - t_save
+    resumed = counted(
+        launches_by_path, f"resumed_{name}",
+        lambda: runner.run_sequence(feed, cfg, checkpoint_path=ck, resume=True, **kw),
+    )
+    d = require_same_run(resumed, full, run_to_run, f"{name} run resumed at frame {at}")
+    stats_equal = True
+    if refined:
+        keys = ("n_keyframes", "ba_solves", "lc_verified", "loops_closed")
+        got, want = ([r.refine_stats.get(k) for k in keys] for r in (resumed, full))
+        stats_equal = got == want
+        if run_to_run == 0.0 and not stats_equal:
+            raise AssertionError(f"resumed refined run: {dict(zip(keys, got))} against {dict(zip(keys, want))}")
+        pend = sorted(k for k in np.load(ck).files if k in ("refx_ba_pend0_T", "refx_lc_pend_ver"))
+        print(f"    in flight in the checkpoint: {pend}; refine stats equal: {stats_equal} ({dict(zip(keys, got))})")
+    print(
+        f"[7] {name} path, {n} frames, checkpoint at {at}: two uninterrupted runs ({two_runs}) differ by {run_to_run:.3e} m "
+        f"({'bit-equal' if run_to_run == 0.0 else 'NOT bit-equal'}); resumed against uninterrupted {d:.3e} m; checkpoint "
+        f"{size} bytes, save {t_save:.4f} s, load {t_load:.4f} s; uninterrupted non-deferred {full.frames_per_sec:.3f} fps, "
+        f"resumed part {resumed.frames_per_sec:.3f} fps; launches {launches_by_path[f'resumed_{name}']}; "
+        f"{time.perf_counter() - t:.1f} s"
+    )
+    for k, v in launches_by_path[f"resumed_{name}"].items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the resumed {name} run")
+    return dict(run_to_run=run_to_run, resumed_diff=d, bytes=size, save_s=t_save, load_s=t_load)
+
+
+def host_paths(feed, cfg: PipelineConfig, device, grouped: runner.RunResult, tmp: str, launches_by_path: dict,
+               run_to_run: float) -> None:
+    """Phase 8: progress and the metrics JSONL on the 30-frame feed."""
+    t = time.perf_counter()
+    n = len(feed)
+    seen = []
+    path = os.path.join(tmp, "metrics.jsonl")
+    single = runner.run_sequence(feed, dataclasses.replace(cfg, fused_group=1), device=device)
+    res = counted(
+        launches_by_path, "per_frame_host",
+        lambda: runner.run_sequence(
+            feed, cfg, device=device, progress=lambda i, info: seen.append((i, info)), metrics_path=path
+        ),
+    )
+    with open(path) as f:
+        rows = [json.loads(line) for line in f]
+    if len(rows) != n or [r["frame"] for r in rows] != list(range(n)) or set(rows[0]) != METRICS_KEYS:
+        raise AssertionError(f"metrics JSONL: {len(rows)} rows with keys {sorted(rows[0]) if rows else None}")
+    if [i for i, _ in seen] != list(range(n)):
+        raise AssertionError("progress was not called once per frame in order")
+    for i, info in seen[1:]:
+        want = dict(n_tracks=int(res.n_tracks[i - 1]), n_inliers=int(res.n_inliers[i - 1]), pose_ok=bool(res.pose_ok[i - 1]))
+        if info != want:
+            raise AssertionError(f"progress at frame {i}: {info} against the result's {want}")
+    d_single = require_same_run(res, single, run_to_run, "non-deferred against the deferred single-frame run")
+    d_grouped = max_diff(res, grouped)
+    if not d_grouped <= GROUPED_POSE_TOL:
+        raise AssertionError(f"non-deferred poses differ from the grouped deferred run's by {d_grouped} > {GROUPED_POSE_TOL}")
+    ms = np.asarray([r["frame_ms"] for r in rows[1:]])
+    print(
+        f"[8] per-frame host paths, {n} frames: non-deferred {res.frames_per_sec:.3f} fps against {single.frames_per_sec:.3f} fps "
+        f"deferred frame by frame (ratio {res.frames_per_sec / single.frames_per_sec:.3f}) and {grouped.frames_per_sec:.3f} fps "
+        f"deferred in groups of {cfg.fused_group} (ratio {res.frames_per_sec / grouped.frames_per_sec:.3f}); frame_ms, one host read "
+        f"included, p50 {np.percentile(ms, 50):.2f} p90 {np.percentile(ms, 90):.2f} p99 {np.percentile(ms, 99):.2f} max {ms.max():.2f}; "
+        f"poses against frame by frame {d_single:.3e} m, against the groups {d_grouped:.3e} m; "
+        f"launches {launches_by_path['per_frame_host']}; {time.perf_counter() - t:.1f} s"
+    )
+    # (the dev utilities on the card: every launch of a short deferred run counted, and the non-finite trap armed)
+    n_dev = 10
+    with debug.compile_logging() as log:
+        runner.run_sequence(feed, cfg, n_frames=n_dev, device=device, warmup=False)
+    with debug.nan_debug():
+        checked = runner.run_sequence(feed, cfg, n_frames=4, device=device, warmup=False)
+    calls = n_dev // cfg.fused_group
+    if log.hand_written != {k: calls for k in KERNELS} or not log.device_launches or not np.isfinite(checked.poses).all():
+        raise AssertionError(f"compile_logging counted {log.hand_written} and {log.device_launches} launches in {n_dev} frames")
+    print(f"    utils.debug: {json.dumps(log.per_frame(n_dev))} over {n_dev} deferred frames; 4 frames under nan_debug stayed finite")
+
+
+def _shared_keypoints(a, b, img: int):
+    """Rows of ``a``'s valid keypoints and the rows of ``b`` that are the same keypoint (position and
+    orientation within the card-against-CPU tolerances) -> (share of a's that b has, max descriptor difference)."""
+    am, bm = a.mask[img].cpu().numpy(), b.mask[img].cpu().numpy()
+    axy, bxy = a.xy[img].cpu().numpy()[am], b.xy[img].cpu().numpy()[bm]
+    aori, bori = a.orientation[img].cpu().numpy()[am], b.orientation[img].cpu().numpy()[bm]
+    close = (np.abs(axy[:, None] - bxy[None]).max(-1) < EXACT_CPU_XY) & (np.abs(aori[:, None] - bori[None]) < EXACT_CPU_ORI)
+    j = np.argmax(close, axis=1)
+    has = close.any(axis=1)
+    dd = np.abs(a.desc[img].cpu().numpy()[am][has] - b.desc[img].cpu().numpy()[bm][j[has]]).max()
+    return float(has.mean()), float(dd)
+
+
+def exact_sift(feed, cfg: PipelineConfig, device, gt, fast_fps: float, launches_by_path: dict) -> None:
+    """Phase 9: the exact-SIFT oracle path on the card."""
+    t = time.perf_counter()
+    imgs = torch.stack([im for i in range(cfg.fused_group) for im in feed.frame(i)]).float() / 255.0
+    one = dict(n_orientations=1)
+    exact1 = dataclasses.replace(cfg.sift, fast_descriptor=False, **one)
+    fe = counted(launches_by_path, "exact_detect_call", lambda: detect_and_describe(imgs, exact1))
+    if launches_by_path["exact_detect_call"] != {"extrema_scores": 1, "bin_maps": 0}:
+        raise AssertionError(f"exact detection call launched {launches_by_path['exact_detect_call']}, expected K1 once, K2 never")
+    fa = detect_and_describe(imgs, dataclasses.replace(cfg.sift, **one))
+    if not torch.equal(fa.mask, fe.mask):
+        raise AssertionError("exact and fast paths select different keypoints")
+    d_xy = float((fa.xy - fe.xy).abs().max())
+    if not d_xy <= EXACT_XY_TOL:
+        raise AssertionError(f"exact and fast keypoints differ by {d_xy} px > {EXACT_XY_TOL}")
+    exact = dataclasses.replace(cfg.sift, fast_descriptor=False)
+    on_card = detect_and_describe(imgs, exact)
+    on_cpu = detect_and_describe(imgs.cpu(), exact)
+    shared, d_desc = zip(*(_shared_keypoints(on_card, on_cpu, b) for b in range(imgs.shape[0])))
+    if min(shared) < EXACT_CPU_SHARED or max(d_desc) > EXACT_CPU_DESC:
+        raise AssertionError(f"exact path, card against CPU: shared {shared}, descriptor differences {d_desc}")
+    if not (torch.isfinite(on_card.desc).all() and on_card.desc.shape == (imgs.shape[0], cfg.sift.max_keypoints, 128)):
+        raise AssertionError("exact descriptors: wrong shape or non-finite")
+    ms_exact = median_ms(lambda: detect_and_describe(imgs, exact), reps=10)
+    ms_fast = median_ms(lambda: detect_and_describe(imgs, cfg.sift), reps=10)
+    cfg_exact = dataclasses.replace(cfg, sift=exact)
+    runner.run_sequence(feed, cfg_exact, device=device)  # warm
+    res = counted(launches_by_path, "exact_run", lambda: runner.run_sequence(feed, cfg_exact, device=device))
+    ate = metrics.ate(res.poses, gt)["rmse"]
+    n_ok = int(res.pose_ok.sum())
+    la = launches_by_path["exact_run"]
+    print(
+        f"[9] exact-SIFT path: detection call ({imgs.shape[0]} images) launches {launches_by_path['exact_detect_call']}, keypoints equal "
+        f"to the fast path's (xy within {d_xy:.2e} px, {int(fe.mask.sum())} valid); card against CPU: shared {min(shared):.4f}, "
+        f"descriptors within {max(d_desc):.2e}; {ms_exact:.3f} ms per call between CUDA events against the fast path's {ms_fast:.3f} ms; "
+        f"{len(feed)}-frame run {res.frames_per_sec:.3f} fps against {fast_fps:.3f} fps, ATE rmse {ate:.5f} m, "
+        f"pose_ok {n_ok}/{len(res.pose_ok)}, launches {la}; {time.perf_counter() - t:.1f} s"
+    )
+    if la["extrema_scores"] <= 0 or la["bin_maps"] != 0:
+        raise AssertionError(f"the exact run launched {la}: K1 must run, K2 must not")
+    if not (np.isfinite(res.poses).all() and ate <= ATE_MAX_M and n_ok >= len(feed) - 2):
+        raise AssertionError(f"exact run: ATE {ate} m, pose_ok {n_ok}")
+
+
+def write_png_gray(path: str, img: np.ndarray) -> None:
+    """An 8-bit greyscale PNG from a uint8 [H, W] array (standard library only)."""
+    h, w = img.shape
+    raw = b"".join(b"\x00" + row.tobytes() for row in np.ascontiguousarray(img, np.uint8))
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def cli(*argv: str) -> str:
+    """``python -m vo_tpu_torch argv`` from the checkout's root; its output. Fails on a non-zero exit."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "vo_tpu_torch", *argv], cwd=REPO, capture_output=True, text=True, timeout=SUBPROCESS_TIMEOUT_S
+    )
+    if proc.returncode != 0:
+        raise AssertionError(f"vo_tpu_torch {' '.join(argv)} exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return proc.stdout
+
+
+def shell_surface(feed, cfg: PipelineConfig, device, tmp: str, run_to_run: float) -> None:
+    """Phase 10: the command line as subprocesses, a KITTI directory on disk, and undistortion."""
+    t = time.perf_counter()
+    have_figures = importlib.util.find_spec("matplotlib") is not None
+    out = os.path.join(tmp, "cli")
+    run = ("run", "--synthetic", "--frames", "12", "--ba", "--loop-closure", "--checkpoint-every", "8", "--out", out)
+    first = cli(*run)
+    files = ["trajectory.npz", "landmarks.npz", "stats.json", "metrics.json", "checkpoint.npz"]
+    files += ["map.png", "error.png"] if have_figures else []
+    for name in files:
+        if not os.path.exists(os.path.join(out, name)):
+            raise AssertionError(f"run wrote no {name}")
+    if "device: cuda" not in first:
+        raise AssertionError(f"run without --cpu did not pick the card:\n{first}")
+    poses_first = np.load(os.path.join(out, "trajectory.npz"))["poses"]
+    second = cli(*run, "--resume")
+    poses_resumed = np.load(os.path.join(out, "trajectory.npz"))["poses"]
+    d_cli = float(np.abs(poses_first - poses_resumed).max())
+    if poses_resumed.shape != (11, 4, 4) or not d_cli <= max(10.0 * run_to_run, 0.0):
+        raise AssertionError(f"--resume: poses {poses_resumed.shape} differ by {d_cli} from the uninterrupted run's")
+    gt_file = os.path.join(synthetic.DEFAULT_KITTI_ROOT, "poses", "00.txt")
+    ev = json.loads(cli("eval", "--trajectory", os.path.join(out, "trajectory.npz"), "--poses", gt_file))
+    with open(os.path.join(out, "metrics.json")) as f:
+        m = json.load(f)
+    if not (np.isfinite(ev["ate"]["rmse"]) and np.isfinite(m["ate"]["rmse"]) and set(ev) == {"ate", "rpe", "xz_mean", "xz_max"}):
+        raise AssertionError(f"eval: {ev}")
+    print(
+        f"[10] run --synthetic --frames 12 --ba --loop-closure --checkpoint-every 8: {first.splitlines()[-2]}; --resume "
+        f"(frames 8-11): {second.splitlines()[-2]}, poses differ by {d_cli:.3e} m; eval ATE rmse {ev['ate']['rmse']:.5f} m; "
+        + ("figures written" if have_figures else "figure files not asserted: matplotlib is not installed")
+    )
+
+    # (a KITTI directory of 10 rendered frames on disk)
+    n = 10
+    seq_dir = os.path.join(tmp, "kitti", "00")
+    for cam in (0, 1):
+        os.makedirs(os.path.join(seq_dir, f"image_{cam}"))
+    with open(os.path.join(synthetic.DEFAULT_KITTI_ROOT, "00", "calib.txt")) as src, open(os.path.join(seq_dir, "calib.txt"), "w") as dst:
+        dst.write(src.read())
+    np.savetxt(os.path.join(seq_dir, "times.txt"), np.arange(n) * runner.KITTI_DT)
+    for i in range(n):
+        for cam, im in enumerate(feed.frame(i)):
+            write_png_gray(os.path.join(seq_dir, f"image_{cam}", f"{i:06d}.png"), im.cpu().numpy())
+    seq = kitti.StereoSequence(seq_dir, poses_path=gt_file)
+    try:
+        if len(seq) != n or seq.times.shape != (n,):
+            raise AssertionError(f"StereoSequence found {len(seq)} frames")
+        for cam, im in enumerate(feed.frame(3)):
+            if not torch.equal(runner.to_device(seq.frame(3)[cam], device), im):  # as the runner quantizes it
+                raise AssertionError("a decoded frame differs from the frame that was written")
+        from_disk = runner.run_sequence(seq, cfg, device=device)
+    finally:
+        seq.close()
+    from_memory = runner.run_sequence(feed, cfg, n_frames=n, device=device)
+    d_disk = require_same_run(from_disk, from_memory, run_to_run, "frames from the KITTI directory against frames from memory")
+    out_data = os.path.join(tmp, "cli_data")
+    text = cli("run", "--data", seq_dir, "--poses", gt_file, "--out", out_data)
+    d_sub = float(np.abs(np.load(os.path.join(out_data, "trajectory.npz"))["poses"] - from_memory.poses).max())
+    if f"image decoder: {seq.decoder}" not in text or not d_sub <= max(10.0 * run_to_run, 0.0):
+        raise AssertionError(f"run --data: poses differ from the in-memory run's by {d_sub}:\n{text}")
+    print(
+        f"     KITTI directory of {n} frames, decoder {seq.decoder}: StereoSequence in process against memory {d_disk:.3e} m, "
+        f"run --data against memory {d_sub:.3e} m ({text.splitlines()[-2]})"
+    )
+
+    # (undistortion of a staged frame)
+    img = feed.frame(0)[0].float() / 255.0
+    model = undistort.DistortionModel(k1=-0.05, k2=0.002, p1=1e-4, p2=-1e-4)
+    on_card = undistort.Undistorter(feed.calib, model, device=device)(img)
+    on_cpu = undistort.Undistorter(feed.calib, model, device="cpu")(img.cpu())
+    d_und = float((on_card.cpu() - on_cpu).abs().max())
+    if undistort.Undistorter(feed.calib, device=device)(img) is not img:
+        raise AssertionError("the identity model did not return its input")
+    if not (d_und <= UNDISTORT_TOL and on_card.device.type == "cuda" and float((on_card - img).abs().max()) > 1e-3):
+        raise AssertionError(f"Undistorter on the card differs from the CPU by {d_und}")
+    print(f"     Undistorter (k1 {model.k1}) on a staged frame: card against CPU {d_und:.2e}; {time.perf_counter() - t:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card", file=sys.stderr)
@@ -360,10 +737,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     stats = check_kernels(feed, cfg)
 
-    runner.run_sequence(feed, cfg, n_frames=N_FRAMES, device=device)  # warm run
-    kernels.reset_launches()
-    res = runner.run_sequence(feed, cfg, n_frames=N_FRAMES, device=device)
-    launches = dict(kernels.LAUNCHES)
+    launches_by_path: dict = {}
+    warm = runner.run_sequence(feed, cfg, n_frames=N_FRAMES, device=device)  # warm run
+    res = counted(launches_by_path, "plain", lambda: runner.run_sequence(feed, cfg, n_frames=N_FRAMES, device=device))
+    launches = launches_by_path["plain"]
     ate = metrics.ate(res.poses, np.asarray(seq.gt_poses))
     n_ok = int(res.pose_ok.sum())
     print(
@@ -387,9 +764,19 @@ def main() -> int:
     feed5 = OutAndBackFeed(OUT_FRAMES, device)
     print(f"[5] rendered and staged {OUT_FRAMES} frames {feed5.H}x{feed5.W} for a {len(feed5)}-frame feed in "
           f"{time.perf_counter() - t:.1f} s")
-    for k, v in refined_path(feed5, cfg, device).items():
-        launches[k] += v
+    launches_by_path["refined"], refined = refined_path(feed5, cfg, device)
     closure_fires(feed5, cfg, device)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        found = resume_on_the_card(feed5, cfg, device, OUT_FRAMES, tmp, launches_by_path, refined=True, again=refined)
+        plain_found = resume_on_the_card(feed, cfg, device, N_FRAMES // 2, tmp, launches_by_path, refined=False)
+        d_warm = max_diff(warm, res)
+        print(f"    phase 4's two deferred runs differ by {d_warm:.3e} m")
+        run_to_run = max(plain_found["run_to_run"], d_warm)
+        host_paths(feed, cfg, device, res, tmp, launches_by_path, run_to_run)
+        exact_sift(feed, cfg, device, np.asarray(seq.gt_poses), res.frames_per_sec, launches_by_path)
+        shell_surface(feed, cfg, device, tmp, max(run_to_run, found["run_to_run"]))
+    launches = {k: sum(v[k] for v in launches_by_path.values()) for k in KERNELS}
 
     summary = [
         dict(
@@ -398,8 +785,10 @@ def main() -> int:
             source=meta["source"],
             replaces=meta["replaces"],
             launches=launches[k],
+            launches_by_path={path: v[k] for path, v in launches_by_path.items()},
             launches_per_detect_call=stats[k]["launches_per_detect_call"],
             max_abs_err=stats[k]["max_abs_err"],
+            max_abs_err_by_batch=stats[k]["max_abs_err_by_batch"],
             ms=stats[k]["ms"],
             octave0_ms=stats[k]["octave0_ms"],
             per_octave_launches_ms=stats[k]["per_octave_launches_ms"],

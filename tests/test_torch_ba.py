@@ -31,6 +31,9 @@ from vo_tpu_torch.io import synthetic as p_syn
 from vo_tpu_torch.odometry import ba_runner as p_bar
 from vo_tpu_torch.utils.host_copy import HostCopy
 
+# The suite runs in several worker processes at once: one thread each, or they fight for the cores.
+torch.set_num_threads(1)
+
 DATA = Path(__file__).parent / "data" / "kitti"
 TOL = 1e-4
 

@@ -23,9 +23,13 @@ from vo_tpu_torch.ba.pose_graph import _np_exp_so3
 from vo_tpu_torch.eval import metrics as p_metrics
 from vo_tpu_torch.geom.camera import calib_from_projections
 from vo_tpu_torch.io import kitti as p_kitti
-from vo_tpu_torch.odometry import ba_runner, landmarks, pipeline, refiner, runner
+from vo_tpu_torch.io import undistort
+from vo_tpu_torch.odometry import ba_runner, checkpoint, landmarks, pipeline, refiner, runner
 from vo_tpu_torch.slam import loop_closure
 from vo_tpu_torch.utils.device import default_device, resolve
+
+# The suite runs in several worker processes at once: one thread each, or they fight for the cores.
+torch.set_num_threads(1)
 
 DATA = Path(__file__).parent / "data" / "kitti"
 CLASSES = ["SIFTConfig", "MatcherConfig", "RansacConfig", "LandmarkConfig", "BAConfig", "LoopConfig", "MeshConfig",
@@ -158,7 +162,16 @@ def _entry_points(calib, device):
         ).xyz,
         "ba_problem_from_numpy": lambda: convert.ba_problem_from_numpy(prob, **kw).X,
         "archived_keyframe_from_numpy": lambda: convert.archived_keyframe_from_numpy(kf, **kw).dev[0],
+        "checkpoint.load": lambda: checkpoint.load(_checkpoint_file(state), **kw).state.pose_c2w,
+        "Undistorter": lambda: undistort.Undistorter(calib, undistort.DistortionModel(k1=-0.1), **kw).device,
     }
+
+
+def _checkpoint_file(state) -> str:
+    import tempfile
+
+    path = tempfile.mkdtemp() + "/c.npz"
+    return checkpoint.save(path, state, None, np.zeros((0, 4, 4)), np.zeros((0, 4, 4)), 1)
 
 
 def _closed(worker):
@@ -177,7 +190,8 @@ def _features():
 
 ENTRY_POINTS = ["run_sequence", "RefinerWorker", "WindowedBA", "LoopCloser", "init_state", "init_map",
                 "calib_from_projections", "calib_from_numpy", "features_from_numpy", "stereo_features_from_numpy",
-                "state_from_numpy", "lmap_from_numpy", "ba_problem_from_numpy", "archived_keyframe_from_numpy"]
+                "state_from_numpy", "lmap_from_numpy", "ba_problem_from_numpy", "archived_keyframe_from_numpy",
+                "checkpoint.load", "Undistorter"]
 
 
 def test_entry_point_list_is_complete(calib):
@@ -209,3 +223,128 @@ def test_entry_point_defaults_to_the_card(calib, name):
     got = _entry_points(calib, None)[name]()
     dev = got if isinstance(got, torch.device) else got.device
     assert dev == torch.device("cuda", torch.cuda.current_device())
+
+
+# --- the copies of the reference's host-side utilities, and the small tensor utilities ---
+
+
+def test_profiling_copies_equal_the_originals(tmp_path):
+    import json
+
+    from vo_tpu.utils import profiling as r_prof
+    from vo_tpu_torch.utils import profiling as p_prof
+
+    rel = np.eye(4)
+    rel[:3, 3] = [1.0, 0.0, 0.5]
+    pose = np.eye(4)
+    pose[:3, 3] = [3.25, -1.5, 40.0]
+    for dt in (0.1, 0.0):
+        assert p_prof.pretty_frame(7, rel, pose, dt) == r_prof.pretty_frame(7, rel, pose, dt)
+    assert "frame 7" in p_prof.pretty_frame(7, rel, pose, 0.1) and "km/h" in p_prof.pretty_frame(7, rel, pose, 0.1)
+    timers = p_prof.StageTimer(), r_prof.StageTimer()
+    for t in timers:
+        for name in ("a", "a", "b"):
+            with t.stage(name):
+                pass
+        t.totals["a"], t.totals["b"] = 0.25, 0.0625  # the same recorded seconds in both
+    assert timers[0].summary() == timers[1].summary() and timers[0].report() == timers[1].report()
+    assert timers[0].summary()["a"] == dict(total_s=0.25, calls=2, mean_ms=125.0)
+    rows = []
+    for mod, name in ((p_prof, "p.jsonl"), (r_prof, "r.jsonl")):
+        m = mod.MetricsLog(str(tmp_path / name))
+        m.log(0, n_tracks=np.int64(5), err=np.float32(1.5), arr=np.array([1.0, 2.0]))
+        m.log(1, n_tracks=7, err=0.5)
+        m.close()
+        rows.append([json.loads(line) for line in open(tmp_path / name)])
+    assert rows[0] == rows[1] and rows[0][0] == dict(frame=0, n_tracks=5, err=1.5, arr=[1.0, 2.0])
+
+
+def test_trace_writes_a_chrome_trace(tmp_path):
+    import json
+
+    from vo_tpu_torch.utils import profiling as p_prof
+
+    with p_prof.trace(str(tmp_path / "tr")):
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    events = json.load(open(tmp_path / "tr" / "trace.json"))["traceEvents"]
+    assert any("mm" in e.get("name", "") for e in events)
+
+
+def test_figures_copy_equals_the_original(tmp_path):
+    from vo_tpu.viz import figures as r_fig
+    from vo_tpu_torch.viz import figures as p_fig
+
+    rng = np.random.default_rng(0)
+    img = rng.uniform(0, 1, (64, 128)).astype(np.float32)
+    cur = rng.uniform(0, 120, (20, 2))
+    old = cur + rng.normal(0, 2, (20, 2))
+    disp = rng.uniform(0, 5, 20)
+    poses = np.tile(np.eye(4), (10, 1, 1))
+    poses[:, 0, 3] = np.arange(10)
+    lms = rng.uniform(-5, 5, (100, 3))
+    frame_out = dict(tracked_cur_px=cur, tracked_old_px=old, tracked_disp_3d=disp, tracked_mask=np.ones(20, bool))
+    sizes = []
+    for mod, d in ((p_fig, tmp_path / "p"), (r_fig, tmp_path / "r")):
+        mod.frame_report(str(d), 5, img, frame_out, poses[1:], poses, landmarks=lms)
+        sizes.append({n: (d / "5" / n).stat().st_size for n in ("view.png", "map.png", "error.png", "3d_map.png")})
+    assert sizes[0] == sizes[1] and min(sizes[0].values()) > 1000  # the same drawing, byte for byte in size
+    public = lambda m: sorted(k for k, v in vars(m).items() if callable(v) and getattr(v, "__module__", "") == m.__name__)  # noqa: E731
+    assert public(p_fig) == public(r_fig)
+
+
+@pytest.mark.parametrize("n", [3, 5, 8])
+def test_pad_to_equals_reference(rng, n):
+    import jax.numpy as jnp
+
+    from vo_tpu.utils import padding as r_pad
+    from vo_tpu_torch.utils import padding as p_pad
+
+    for x in (rng.normal(size=(5, 3)).astype(np.float32), rng.integers(0, 9, 5)):
+        got = p_pad.pad_to(torch.from_numpy(x), n, fill=-1)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(r_pad.pad_to(jnp.asarray(x), n, fill=-1)))
+        assert got.dtype == torch.from_numpy(x).dtype and got.shape[0] == n
+
+
+@pytest.mark.parametrize("n_valid", [0, 3, 40])
+def test_masked_topk_equals_reference(rng, n_valid):
+    import jax.numpy as jnp
+
+    from vo_tpu.utils import padding as r_pad
+    from vo_tpu_torch.utils import padding as p_pad
+
+    scores = rng.permutation(40).astype(np.float32)  # no ties: the order is then defined
+    mask = np.zeros(40, bool)
+    mask[rng.permutation(40)[:n_valid]] = True
+    vals, idx, valid = p_pad.masked_topk(torch.from_numpy(scores), torch.from_numpy(mask), 8)
+    r_vals, r_idx, r_valid = r_pad.masked_topk(jnp.asarray(scores), jnp.asarray(mask), 8)
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(r_valid))
+    assert int(valid.sum()) == min(n_valid, 8)
+    k = int(valid.sum())
+    np.testing.assert_array_equal(idx.numpy()[:k], np.asarray(r_idx)[:k])
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(r_vals))
+
+
+def test_debug_utils():
+    """The port's mirror of tests/test_profiling.py::test_debug_utils."""
+    import itertools
+
+    from vo_tpu_torch.frontend import kernels
+    from vo_tpu_torch.utils import debug
+
+    with debug.nan_debug():
+        assert debug.nan_checks_enabled()
+        with pytest.raises(FloatingPointError, match="stage 's'"):
+            debug.check_finite("s", (torch.tensor([1.0, float("inf")]),))
+        debug.check_finite("s", (torch.tensor([1.0, float("nan")]),), mask=torch.tensor([True, False]))
+    debug.check_finite("s", torch.tensor([float("nan")]))  # outside the context: no check
+    with debug.compile_logging() as log:
+        kernels.LAUNCHES["extrema_scores"] += 2  # as two launches inside the block would
+    kernels.LAUNCHES["extrema_scores"] -= 2
+    assert log.hand_written == {"extrema_scores": 2, "bin_maps": 0}
+    assert log.per_frame(2)["extrema_scores_per_frame"] == 1.0
+    assert log.device_launches is None or log.device_launches >= 0  # traced only where there is a card
+    x = torch.arange(4.0)
+    assert debug.check_determinism(lambda a: {"y": a * 2, "z": (a + 1, [a])}, x)
+    counter = itertools.count()
+    assert not debug.check_determinism(lambda a: a + next(counter), x)
+    assert debug.check_determinism(lambda a: a + next(counter), x, n=1)

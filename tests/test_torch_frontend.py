@@ -28,6 +28,9 @@ from vo_tpu_torch.frontend import sift as p_sift
 from vo_tpu_torch.frontend import track as p_track
 from vo_tpu_torch.io import synthetic
 
+# The suite runs in several worker processes at once: one thread each, or they fight for the cores.
+torch.set_num_threads(1)
+
 SIZE = (188, 620)
 CFG = SIFTConfig(max_keypoints=384, n_octaves=3)
 

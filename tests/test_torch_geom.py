@@ -14,6 +14,9 @@ from vo_tpu_torch.geom import triangulate as p_tri
 from vo_tpu_torch.geom.camera import calib_from_projections
 from vo_tpu_torch.io import kitti as p_kitti
 
+# The suite runs in several worker processes at once: one thread each, or they fight for the cores.
+torch.set_num_threads(1)
+
 KITTI_00 = Path(__file__).parent / "data" / "kitti" / "00"
 TOL = 1e-5
 

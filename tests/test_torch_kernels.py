@@ -18,6 +18,9 @@ from scipy.ndimage import gaussian_filter
 from vo_tpu_torch.config import SIFTConfig
 from vo_tpu_torch.frontend import kernels, sift
 
+# The suite runs in several worker processes at once: one thread each, or they fight for the cores.
+torch.set_num_threads(1)
+
 THR = 0.0133
 BORDER = 5
 

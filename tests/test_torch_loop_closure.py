@@ -32,6 +32,9 @@ from vo_tpu_torch.io import synthetic as p_syn
 from vo_tpu_torch.odometry.refiner import global_desc
 from vo_tpu_torch.slam import loop_closure as p_lc
 
+# The suite runs in several worker processes at once: one thread each, or they fight for the cores.
+torch.set_num_threads(1)
+
 DATA = Path(__file__).parent / "data" / "kitti"
 CAP = 384
 CFG = LoopConfig(radius=8.0, min_gap=8, min_inliers=15, max_keyframes=32, graph_iters=10)

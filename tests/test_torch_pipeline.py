@@ -37,6 +37,9 @@ from vo_tpu_torch.odometry import pipeline as p_pipe
 from vo_tpu_torch.odometry import runner as p_runner
 from vo_tpu_torch.io import synthetic as p_syn
 
+# The suite runs in several worker processes at once: one thread each, or they fight for the cores.
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 DATA = REPO / "tests" / "data"
 SIZE = (188, 620)
@@ -159,21 +162,28 @@ def test_fused_group_matches_group_2(seqs, port_run, group):
     np.testing.assert_array_equal(other.pose_ok, port_run.pose_ok)
 
 
-@pytest.mark.parametrize(
-    "opt",
-    # The refined path (use_ba / use_loop_closure) is ported; its checkpoint and live figures are not.
-    [dict(use_ba=True, checkpoint_path="ck.npz", checkpoint_every=5), dict(use_loop_closure=True, viz_dir="viz"),
-     dict(mesh=object()), dict(checkpoint_path="ck.npz", checkpoint_every=5),
-     dict(resume=True), dict(progress=print), dict(metrics_path="m.jsonl"), dict(viz_every=10)],
-)
+@pytest.mark.parametrize("opt", [dict(mesh=object())])
 def test_runner_rejects_unported_options(seqs, opt):
-    with pytest.raises(NotImplementedError):
+    """Only the device mesh is left unported; every other option of the reference's runner is taken."""
+    with pytest.raises(NotImplementedError, match="mesh"):
         p_runner.run_sequence(seqs[0], _pcfg(), device="cpu", **opt)
 
 
+def test_runner_takes_every_reference_option():
+    import inspect
+
+    ref = inspect.signature(r_runner.run_sequence).parameters
+    port = inspect.signature(p_runner.run_sequence).parameters
+    assert list(port)[: len(ref)] == list(ref) and set(port) - set(ref) == {"device"}
+    for k in ref:
+        assert port[k].default == ref[k].default, k
+    assert p_runner.KITTI_DT == r_runner.KITTI_DT
+
+
 def test_port_never_imports_jax():
-    """Importing every vo_tpu_torch module, chip_smoke and the profiling tool leaves jax and
-    every module of vo_tpu out of sys.modules."""
+    """Importing EVERY vo_tpu_torch module (the command line's ``__main__`` and the figures
+    included), chip_smoke and the profiling tool leaves jax and every module of vo_tpu out of
+    sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "sys.path.insert(0, 'tools')\n"
@@ -183,6 +193,8 @@ def test_port_never_imports_jax():
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
         "ref = sorted(k for k in sys.modules if k == 'vo_tpu' or k.startswith('vo_tpu.'))\n"
         "assert not ref, ref\n"
+        "for m in ('__main__', 'viz.figures', 'odometry.checkpoint', 'io.undistort', 'io.native_loader', 'utils.debug', 'utils.profiling'):\n"
+        "    assert 'vo_tpu_torch.' + m in sys.modules, m\n"
         "print('ok', len([k for k in sys.modules if k.startswith('vo_tpu_torch')]))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

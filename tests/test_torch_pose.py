@@ -20,6 +20,9 @@ from vo_tpu_torch.convert import calib_from_numpy, config_from_reference
 from vo_tpu_torch.pose import p3p as p_p3p
 from vo_tpu_torch.pose import ransac as p_ransac
 
+# The suite runs in several worker processes at once: one thread each, or they fight for the cores.
+torch.set_num_threads(1)
+
 DATA = Path(__file__).parent / "data" / "kitti"
 TOL = 1e-4
 

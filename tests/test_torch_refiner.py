@@ -30,9 +30,13 @@ from vo_tpu_torch.ba.pose_graph import _np_exp_so3
 from vo_tpu_torch.eval import metrics
 from vo_tpu_torch.io import kitti as p_kitti
 from vo_tpu_torch.io import synthetic as p_syn
+from vo_tpu_torch.frontend.track import StereoFeatures as PStereoFeatures
 from vo_tpu_torch.odometry import correction as p_corr
 from vo_tpu_torch.odometry import refiner as p_ref
 from vo_tpu_torch.odometry import runner as p_runner
+
+# The suite runs in several worker processes at once: one thread each, or they fight for the cores.
+torch.set_num_threads(1)
 
 DATA = Path(__file__).parent / "data" / "kitti"
 SIZE = (160, 320)
@@ -42,10 +46,13 @@ SIZE = (160, 320)
 def ref():
     """The jax reference's modules."""
     from vo_tpu import config
+    from vo_tpu.frontend import track
     from vo_tpu.io import kitti, synthetic
     from vo_tpu.odometry import correction, refiner, runner
 
-    return SimpleNamespace(config=config, kitti=kitti, syn=synthetic, corr=correction, refiner=refiner, runner=runner)
+    return SimpleNamespace(
+        config=config, kitti=kitti, syn=synthetic, corr=correction, refiner=refiner, runner=runner, track=track
+    )
 
 
 def _cfg(c=p_config):
@@ -153,6 +160,129 @@ def test_worker_error_reaches_the_main_thread(feed, monkeypatch):
     monkeypatch.setattr(ba_runner.WindowedBA, "dispatch", fail)
     with pytest.raises(RuntimeError, match="window solve failed"):
         p_runner.run_sequence(feed, _cfg(), n_frames=9, warmup=False, use_ba=True, device="cpu")
+
+
+def _synthetic_keyframes(rng, calib, gt_poses, K, Kw, M=300, C=256):
+    """K keyframes 2 frames apart observing M landmarks with 0.3 px detection noise: each one's
+    stereo payload and the window-match payload (slot, a, b, ok) of the runner's associator ring of
+    ``Kw`` slots, made from the landmarks' identities."""
+    lms = p_syn.scatter_landmarks(rng, gt_poses[: 2 * K], M)
+    P1, P2 = calib.P1.numpy().astype(np.float64), calib.P2.numpy().astype(np.float64)
+    H, W = calib.image_size
+    ring = [None] * Kw
+    out = []
+    for k in range(K):
+        T = gt_poses[2 * k]
+        cam = p_syn._w2c_apply(T, lms)
+        safe = np.where(cam[:, 2:3] > 1.0, cam, [0, 0, 10.0])
+        px, pxr = p_syn.project_np(P1, safe), p_syn.project_np(P2, safe)
+        vis = np.flatnonzero((cam[:, 2] > 1.0) & (px[:, 0] >= 0) & (px[:, 0] < W) & (px[:, 1] >= 0) & (px[:, 1] < H))
+        rows = rng.permutation(vis)[:C]
+        n = rows.size
+        l_xy, r_xy = np.zeros((C, 2), np.float32), np.zeros((C, 2), np.float32)
+        l_xy[:n] = px[rows] + rng.normal(scale=0.3, size=(n, 2))
+        r_xy[:n] = np.stack([pxr[rows, 0], px[rows, 1]], -1) + rng.normal(scale=0.3, size=(n, 2))
+        lm = np.full(C, -1, np.int64)
+        lm[:n] = rows
+        mask = lm >= 0
+        m_a, m_b, m_ok = (np.zeros((Kw, C), dt) for dt in (np.int32, np.int32, bool))
+        for s, old in enumerate(ring):
+            if old is None:
+                continue
+            a, b = np.nonzero((lm[:, None] == old[None, :]) & mask[:, None])
+            m_a[s, : a.size], m_b[s, : a.size], m_ok[s, : a.size] = a, b, True
+        ring[k % Kw] = lm
+        pose = gt_poses[2 * k].astype(np.float32)
+        pose[:3, 3] += rng.normal(scale=0.02, size=3)
+        out.append(dict(
+            frame_idx=2 * k + 2, pose=pose, l_xy=l_xy, r_xy=r_xy, l_desc=rng.random((C, 128)).astype(np.float32),
+            r_desc=rng.random((C, 128)).astype(np.float32), mask=mask, ids=np.arange(C, dtype=np.int32),
+            assoc=(k % Kw, m_a, m_b, m_ok),
+        ))
+    return out
+
+
+def _submit(worker, kf, features, asarray):
+    feats = features(**{f: asarray(kf[f]) for f in PStereoFeatures._fields})
+    slot, *payload = kf["assoc"]
+    worker.submit(kf["frame_idx"], asarray(kf["pose"]), feats, assoc=(slot, *(asarray(x) for x in payload)))
+
+
+GENERATOR_FIELDS = {"lc_torch_gen_state", "lc_torch_gen_device"}
+
+
+def test_checkpoint_state_matches_reference_and_resumes_from_it(ref, rng):
+    """The same 7 keyframes into both workers: equal checkpoint_state (key sets apart from the
+    port's generator fields, integers equal, floats within 1e-4). Then the reference's state
+    as it is into a new port worker's restore_state, 4 more keyframes into both: corrected keyframes
+    within 1e-4 m, and each restored window keyframe shares its ids array with its ring slot."""
+    import jax.numpy as jnp
+
+    calib = p_kitti.load_stereo_calib(str(DATA / "00"))
+    gt = p_kitti.read_poses(str(DATA / "poses" / "00.txt"))
+    cfg, r_cfg = _cfg(), _cfg(ref.config)
+    kfs = _synthetic_keyframes(rng, calib, gt, K=11, Kw=cfg.ba.window)
+    r_worker = ref.refiner.RefinerWorker(ref.kitti.load_stereo_calib(str(DATA / "00")), r_cfg, True, True)
+    p_worker = p_ref.RefinerWorker(calib, cfg, True, True, device="cpu")
+    resumed = p_ref.RefinerWorker(calib, cfg, True, True, device="cpu")
+    try:
+        for kf in kfs[:7]:
+            _submit(r_worker, kf, ref.track.StereoFeatures, jnp.asarray)
+            _submit(p_worker, kf, PStereoFeatures, torch.from_numpy)
+        r_state, p_state = r_worker.checkpoint_state(), p_worker.checkpoint_state()
+        assert set(p_state) - set(r_state) == GENERATOR_FIELDS and set(r_state) <= set(p_state)
+        assert {"ba_pend0_T", "ba_pend1_T", "lc_kf_desc", "lc_key", "ba_win_slot"} <= set(r_state)
+        n_cand = len(r_state["lc_pend_cands"])
+        assert n_cand >= 1  # a verification round is in flight in both
+        for k, want in r_state.items():
+            got = np.asarray(p_state[k])
+            want = np.asarray(want)
+            if k in ("lc_pend_ok", "lc_pend_ninl", "lc_pend_poses", "lc_pend_nm"):
+                # The reference pads the round to candidate_budget, the port verifies the candidates
+                # it has; both read the first n_cand. The two packages draw different RANSAC samples,
+                # so only the match counts and (no keyframe here resembles another) the verdicts agree.
+                assert got.shape[0] == n_cand <= want.shape[0], k
+                if k in ("lc_pend_ok", "lc_pend_nm"):
+                    np.testing.assert_array_equal(got, want[:n_cand], err_msg=k)
+                continue
+            assert got.shape == want.shape, k
+            if k == "lc_key":
+                assert got.dtype == want.dtype  # a placeholder of the reference's shape and dtype
+            elif np.issubdtype(want.dtype, np.floating):
+                # (the costs are sums over every observation: relative, as in test_torch_ba.py)
+                np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-3 if "cost" in k else 0, err_msg=k)
+            else:
+                np.testing.assert_array_equal(got, want, err_msg=k)
+        assert p_state["ref_counters"][1] >= 1  # window solves were collected before the checkpoint
+
+        resumed.restore_state(r_state)  # the reference's dict as it is: only the sample stream does not cross
+        slots = resumed.associator._slot_tids
+        assert len(resumed.wba.window) == cfg.ba.window
+        for k, kf in enumerate(resumed.wba.window):
+            assert kf.ids is slots[int(r_state["ba_win_slot"][k])]
+        for kf in kfs[7:]:
+            _submit(r_worker, kf, ref.track.StereoFeatures, jnp.asarray)
+            _submit(resumed, kf, PStereoFeatures, torch.from_numpy)
+            _submit(p_worker, kf, PStereoFeatures, torch.from_numpy)
+    finally:
+        for w in (r_worker, p_worker, resumed):
+            w.close()
+    r_idx, r_poses = r_worker.corrected_keyframes()
+    for w in (resumed, p_worker):
+        idx, poses = w.corrected_keyframes()
+        np.testing.assert_array_equal(idx, r_idx)
+        np.testing.assert_allclose(poses, r_poses, atol=1e-4)
+    assert resumed.stats["ba_solves"] == r_worker.stats["ba_solves"] == p_worker.stats["ba_solves"] >= 5
+    # In the port, a restored worker continues exactly as the one that was never interrupted would
+    # from the same state: resumed from the port's own state, bit for bit.
+    again = p_ref.RefinerWorker(calib, cfg, True, True, device="cpu")
+    try:
+        again.restore_state(p_state)
+        for kf in kfs[7:]:
+            _submit(again, kf, PStereoFeatures, torch.from_numpy)
+    finally:
+        again.close()
+    np.testing.assert_array_equal(again.corrected_keyframes()[1], p_worker.corrected_keyframes()[1])
 
 
 @pytest.mark.gpu

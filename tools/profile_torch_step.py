@@ -2,6 +2,7 @@
 
     python tools/profile_torch_step.py [--frames 30]
     python tools/profile_torch_step.py --refined
+    python tools/profile_torch_step.py --exact
 
 Renders the synthetic KITTI-00 feed (30 frames, 6000 landmarks, seed 0, as
 chip_smoke.py), stages it on the card and runs odometry.runner.run_sequence at
@@ -28,13 +29,21 @@ With ``--refined`` it profiles the refined path instead
 busy time (the union of kernel and copy intervals over both streams: the
 frame loop's and the refiner's) and idle share.
 
+With ``--exact`` it profiles one detection call (4 images) on the exact-SIFT
+oracle path (``fast_descriptor=False``) beside the fast path's: host time to
+enqueue, wall time, device busy time, launches and the launches of the two
+hand-written kernels (the exact path launches K1 once and K2 never), the
+kernels that take the most device time, and peak device memory.
+
 The summary is also written as JSON to chiprun_out/profile_torch_step.json
-(profile_torch_step_refined.json with ``--refined``).
+(profile_torch_step_refined.json with ``--refined``, profile_torch_step_exact.json
+with ``--exact``).
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import os
 import subprocess
@@ -109,6 +118,7 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=30)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--refined", action="store_true", help="profile the refined path (BA + loop closure)")
+    ap.add_argument("--exact", action="store_true", help="profile a detection call on the exact-SIFT path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_step: needs a CUDA card", file=sys.stderr)
@@ -122,6 +132,8 @@ def main() -> int:
     cfg = PipelineConfig()
     if args.refined:
         return profile_refined(cfg, dev, card)
+    if args.exact:
+        return profile_exact(cfg, dev, card, args.reps)
     seq = synthetic.kitti_synthetic_sequence(n_frames=args.frames, n_landmarks=6000, seed=0)
     feed = runner.StagedSequence(seq, args.frames, dev)
 
@@ -188,6 +200,41 @@ def main() -> int:
             print(f"    {v:8.4f} ms  {k[:100]}")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "profile_torch_step.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+    return 0
+
+
+def profile_exact(cfg: PipelineConfig, dev, card: str, reps: int) -> int:
+    seq = synthetic.kitti_synthetic_sequence(n_frames=2, n_landmarks=6000, seed=0)
+    feed = runner.StagedSequence(seq, 2, dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    imgs = torch.stack([pipeline._normalize(im) for i in (0, 1) for im in feed.frame(i)])
+    summary = dict(card=card, images=int(imgs.shape[0]), paths={})
+    for name, fast in (("exact", False), ("fast", True)):
+        sift = dataclasses.replace(cfg.sift, fast_descriptor=fast)
+        fn = lambda: detect_and_describe(imgs, sift)  # noqa: E731
+        fn()  # warm
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        fn()
+        hand = dict(kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        enq, wall = host_times(fn, reps)
+        busy, launches, by = traced(fn, reps)
+        summary["paths"][name] = dict(
+            enqueue_ms=enq, wall_ms=wall, device_ms=busy, launches=launches, hand_written_launches=hand,
+            peak_memory_bytes=peak, top_kernels_ms={k: v for k, v in by.most_common(8)},
+            hand_written_ms=hand_written_ms(by),
+        )
+        print(
+            f"detect_and_describe ({imgs.shape[0]} images), {name} path: enqueue {enq:.3f} ms, wall {wall:.3f} ms, "
+            f"device {busy:.3f} ms, {launches:.0f} launches, hand-written launches {hand}, peak memory {peak / 1e6:.1f} MB"
+        )
+        for k, v in by.most_common(8):
+            print(f"    {v:8.4f} ms  {k[:100]}")
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "profile_torch_step_exact.json"), "w") as f:
         json.dump(summary, f, indent=1)
     return 0
 

@@ -1,27 +1,37 @@
-"""vo_tpu_torch — vo_tpu's VO main path and refined path in PyTorch, with CUDA kernels.
+"""vo_tpu_torch — vo_tpu's VO engine (main path, refined path, runtime surface) in PyTorch, with CUDA kernels.
 
 A module-for-module port of the JAX package ``vo_tpu`` (which stays the
 reference): same layout and names, PyTorch idiom inside. The two Pallas TPU
 kernels of the front-end are hand-written CUDA C++ for Hopper (``csrc/``),
 built with ``nvcc`` at first use (``frontend/kernels.py``).
 
-Ported so far: ``odometry.runner.run_sequence`` on the plain path and on the
-refined path (window BA + loop closure through the background refiner), with
-no checkpoint/resume and no mesh. The package imports ``torch``, never ``jax``
-and nothing of ``vo_tpu``: it keeps its own copies of the configuration and
-the trajectory metrics. Its entry points run on the CUDA card unless the
-caller passes ``device="cpu"`` (``utils.device.default_device``).
+Ported: ``odometry.runner.run_sequence`` on the plain path and on the refined
+path (window BA + loop closure through the background refiner), with
+checkpoint/resume (the refiner's state included; the files are the
+reference's format), the per-frame ``progress`` / ``metrics_path`` /
+``viz_every`` options, the command line (``python -m vo_tpu_torch run|eval``:
+the card unless ``--cpu``; ``--checkpoint-every N`` and ``--resume``), the
+Lowe-exact SIFT oracle path (``SIFTConfig(fast_descriptor=False)``),
+undistortion, the KITTI image feed and the dev utilities. Not ported yet: the
+device mesh (``dist/``, ``run_sequence(mesh=)``, ``--mesh``) and a benchmark
+(``bench``). The package imports ``torch``, never ``jax`` and nothing of
+``vo_tpu``: it keeps its own copies of the configuration, the trajectory
+metrics, the profiling helpers and the figures. Its entry points run on the
+CUDA card unless the caller passes ``device="cpu"``
+(``utils.device.default_device``).
 
 Subpackages:
   geom      SE(3), stereo calibration, rectified triangulation
-  io        KITTI parsers, synthetic KITTI-geometry renderer
-  frontend  pyramid, CUDA kernels, SIFT detection + dense descriptors, matching, tracking
+  io        KITTI parsers and image feed, native PNG decoder, undistortion, synthetic KITTI-geometry renderer
+  frontend  pyramid, CUDA kernels, SIFT detection + dense and exact descriptors, matching, tracking
   pose      P3P, RANSAC
-  odometry  per-frame VO step, landmark store, sequence runner, window-BA runner, refiner
+  odometry  per-frame VO step, landmark store, sequence runner, checkpoint, window-BA runner, refiner
   ba        sliding-window bundle adjustment, host pose-graph solve
   slam      loop closure
   eval      trajectory metrics
-  utils     fixed-capacity padding/masking, non-waiting host/device copies, the default device
+  utils     fixed-capacity padding/masking, non-waiting host/device copies, the default device,
+            profiling (timers, metrics JSONL, torch.profiler trace), debugging (non-finite trap, launch counts)
+  viz       the reference's four figures (matplotlib, imported only where drawn)
 """
 
 __version__ = "0.1.0"

@@ -11,8 +11,10 @@ CPU only when asked. ``config_from_reference`` copies a configuration of the
 reference's classes into the port's own, field by field.
 
 A VO engine carries no weights; what crosses between the packages is state:
-the VO step's, a window-BA problem, and the refiner's keyframes (window and
-loop-closure archive), so that both packages get identical inputs.
+the VO step's, a window-BA problem and the refiner's keyframes (window and
+loop-closure archive), so that both packages get identical inputs. The
+refiner's ``checkpoint_state()`` dict needs no conversion: the port's
+``RefinerWorker.restore_state`` takes the reference's as it is.
 """
 from __future__ import annotations
 
@@ -168,3 +170,4 @@ def archived_keyframe_from_numpy(kf, device=None):
         path_m=float(getattr(kf, "path_m", 0.0)),
         dev=tuple(torch.from_numpy(h).to(resolve(device)) for h in host),
     )
+

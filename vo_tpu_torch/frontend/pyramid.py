@@ -134,3 +134,15 @@ def build_pyramid(img: torch.Tensor, cfg: SIFTConfig) -> Pyramid:
         dog_octaves.append(G[:, 1:] - G[:, :-1])
         cur = G[:, s]
     return Pyramid(gauss=gauss_octaves, dog=dog_octaves, sigmas=sig, n_scales=s)
+
+
+def gradients(G: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Central-difference gradients of [..., H, W] Gaussian stacks -> (gx, gy), zero on the image border."""
+    gx = 0.5 * (torch.roll(G, -1, dims=-1) - torch.roll(G, 1, dims=-1))
+    gy = 0.5 * (torch.roll(G, -1, dims=-2) - torch.roll(G, 1, dims=-2))
+    # Zero the wrapped borders.
+    gx[..., :, 0] = 0.0
+    gx[..., :, -1] = 0.0
+    gy[..., 0, :] = 0.0
+    gy[..., -1, :] = 0.0
+    return gx, gy

@@ -1,23 +1,35 @@
-"""SIFT-style detection + dense description over a batch of images (port of vo_tpu.frontend.sift).
+"""SIFT-style detection + description over a batch of images (port of vo_tpu.frontend.sift).
 
-The fast path of the reference (``fast_descriptor=True``): dense 3x3x3 DoG
-extrema scores (kernel K1, one ``kernels.extrema_scores_octaves`` launch for the
-whole pyramid), an exact per-octave ``torch.topk``, vectorised quadratic
-subpixel refinement, a global top-k by response, then orientation histograms
-and descriptors from the dense bin maps (kernel K2, one
-``kernels.bin_maps_octaves`` launch, blurred by ``dense_desc.build_bin_map_rows``).
+Detection is one code path: dense 3x3x3 DoG extrema scores (kernel K1, one
+``kernels.extrema_scores_octaves`` launch for the whole pyramid), an exact
+per-octave ``torch.topk``, vectorised quadratic subpixel refinement, a global
+top-k by response. Orientation and description have two:
+
+- the fast path (``fast_descriptor=True``, the default): orientation
+  histograms and descriptors from the dense bin maps (kernel K2, one
+  ``kernels.bin_maps_octaves`` launch, blurred by
+  ``dense_desc.build_bin_map_rows``);
+- the Lowe-exact oracle path (``fast_descriptor=False``): per-keypoint bilinear
+  samples of the flattened multi-octave gradient stacks, a 17x17 window for the
+  orientation histogram and a rotated 16x16 grid for the 4x4x8 descriptor, as
+  tensor operations over all keypoints of all images at once. It launches K1
+  and never K2; it is what tests hold the fast path against, not a hot path.
+
 Every set is a fixed capacity (``max_keypoints``) with a validity mask.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import math
+
+import numpy as np
 import torch
 
 from ..config import SIFTConfig
 from ..utils.host_copy import upload
 from . import dense_desc, kernels
-from .pyramid import Pyramid, build_pyramid, sigma_schedule
+from .pyramid import Pyramid, _const, build_pyramid, gradients, sigma_schedule
 
 
 class Features(NamedTuple):
@@ -29,6 +41,139 @@ class Features(NamedTuple):
     response: torch.Tensor  # [..., K] |DoG| contrast
     desc: torch.Tensor  # [..., K, 128] L2-normalized
     mask: torch.Tensor  # [..., K] bool
+
+
+# ---------------------------------------------------------------------------
+# static geometry of the exact descriptor (numpy, computed once at import)
+# ---------------------------------------------------------------------------
+
+_DESC_GRID = 16  # samples per axis
+_DESC_CELLS = 4
+_DESC_BINS = 8
+_ORI_R = 8  # orientation window radius (samples)
+
+
+def _spatial_weights() -> np.ndarray:
+    """[256, 16] trilinear spatial weights of each sample into the 4x4 cells."""
+    n, c = _DESC_GRID, _DESC_CELLS
+    w = np.zeros((n * n, c * c), dtype=np.float32)
+    for i in range(n):  # y
+        for j in range(n):  # x
+            cy = (i + 0.5) * c / n - 0.5  # cell-space coordinate
+            cx = (j + 0.5) * c / n - 0.5
+            y0, x0 = int(np.floor(cy)), int(np.floor(cx))
+            fy, fx = cy - y0, cx - x0
+            for dy, wy in ((0, 1 - fy), (1, fy)):
+                for dx, wx in ((0, 1 - fx), (1, fx)):
+                    yy, xx = y0 + dy, x0 + dx
+                    if 0 <= yy < c and 0 <= xx < c:
+                        w[i * n + j, yy * c + xx] = wy * wx
+    return w
+
+
+def _gauss_window(n: int, sigma: float) -> np.ndarray:
+    ax = np.arange(n) - (n - 1) / 2.0
+    g = np.exp(-0.5 * (ax / sigma) ** 2)
+    return np.outer(g, g).astype(np.float32).reshape(-1)
+
+
+_W_SPATIAL = _spatial_weights()  # [256, 16]
+_W_GAUSS_DESC = _gauss_window(_DESC_GRID, _DESC_GRID / 2.0)  # [256]
+
+
+def _bilinear_flat(flat: torch.Tensor, level, ys: torch.Tensor, xs: torch.Tensor, H, W, row0=0) -> torch.Tensor:
+    """Bilinear samples of flattened [L*H*W] stacks at (level, ys, xs); level integer.
+
+    ``flat`` is [B, N], one flattened buffer per image; ``ys``/``xs`` are
+    [B, ...] sample coordinates, and ``level``, ``H``, ``W`` and ``row0`` (the
+    element offset of the stack's first row in a multi-octave buffer) are
+    integers or integer tensors that broadcast against them. Indices past
+    either end of the buffer read its first or last element.
+    """
+    H = torch.as_tensor(H, device=flat.device)
+    W = torch.as_tensor(W, device=flat.device)
+    x0 = torch.minimum(torch.floor(xs).clamp(min=0), (W - 2).to(xs.dtype))
+    y0 = torch.minimum(torch.floor(ys).clamp(min=0), (H - 2).to(ys.dtype))
+    fx = (xs - x0).clamp(0.0, 1.0)
+    fy = (ys - y0).clamp(0.0, 1.0)
+    base = row0 + level * (H * W) + y0.long() * W + x0.long()
+    B, N = flat.shape
+
+    def take(idx):
+        return torch.gather(flat, 1, idx.clamp(0, N - 1).reshape(B, -1)).reshape(idx.shape)
+
+    v00, v10, v01, v11 = take(base), take(base + 1), take(base + W), take(base + W + 1)
+    return v00 * (1 - fx) * (1 - fy) + v10 * fx * (1 - fy) + v01 * (1 - fx) * fy + v11 * fx * fy
+
+
+def _per_sample(a):
+    """A per-keypoint quantity (tensor [B, K] or a plain number) against [B, K, P] samples."""
+    return a[..., None] if isinstance(a, torch.Tensor) else a
+
+
+def _soft_bins(b: torch.Tensor, weight: torch.Tensor, nb: int) -> torch.Tensor:
+    """Each sample's ``weight`` [..., P] split linearly over the two bins next to its fractional
+    bin coordinate ``b`` in [0, nb] (circular) -> [..., P, nb]."""
+    b0 = torch.floor(b)
+    fb = b - b0
+    b0i = b0.long() % nb
+    b1i = (b0i + 1) % nb
+    bins = torch.arange(nb, device=b.device)
+    return (b0i[..., None] == bins) * (weight * (1 - fb))[..., None] + (b1i[..., None] == bins) * (weight * fb)[..., None]
+
+
+def _orientation_hist_one(gx_flat, gy_flat, lvl, yc, xc, sigma_rel, H, W, cfg: SIFTConfig, row0=0) -> torch.Tensor:
+    """Smoothed circular orientation histogram of every keypoint (the reference's per-keypoint
+    function, over [B, K] keypoints at once) -> [B, K, ori_bins]."""
+    R = _ORI_R
+    d = torch.arange(-R, R + 1, dtype=torch.float32, device=gx_flat.device)
+    oy, ox = (g.reshape(-1) for g in torch.meshgrid(d, d, indexing="ij"))
+    # Sample spacing proportional to the keypoint scale (window radius ~ 3*1.5*sigma).
+    step = (1.5 * sigma_rel * 3.0 / R)[..., None]
+    ys = yc[..., None] + oy * step
+    xs = xc[..., None] + ox * step
+    k = _per_sample
+    gxs = _bilinear_flat(gx_flat, k(lvl), ys, xs, k(H), k(W), k(row0))
+    gys = _bilinear_flat(gy_flat, k(lvl), ys, xs, k(H), k(W), k(row0))
+    mag = torch.sqrt(gxs * gxs + gys * gys)
+    w = torch.exp(-(oy**2 + ox**2) / (2.0 * (R / 1.5) ** 2))
+    ang = torch.atan2(gys, gxs)  # [-pi, pi]
+    nb = cfg.ori_bins
+    hist = _soft_bins((ang / (2 * math.pi) + 0.5) * nb, w * mag, nb).sum(dim=-2)
+    # Circular smoothing (two box passes).
+    for _ in range(2):
+        hist = (torch.roll(hist, 1, dims=-1) + hist + torch.roll(hist, -1, dims=-1)) / 3.0
+    return hist
+
+
+def _descriptor_one(gx_flat, gy_flat, lvl, yc, xc, sigma_rel, theta, H, W, row0=0) -> torch.Tensor:
+    """128-D SIFT descriptor of every keypoint (the reference's per-keypoint function, over
+    [B, K] keypoints at once) -> [B, K, 128]."""
+    n = _DESC_GRID
+    dev = gx_flat.device
+    d = torch.arange(n, dtype=torch.float32, device=dev) - (n - 1) / 2.0
+    oy, ox = (g.reshape(-1) for g in torch.meshgrid(d, d, indexing="ij"))
+    # Sample spacing: 3*sigma per histogram cell, 4 samples per cell.
+    step = (3.0 * sigma_rel / (n / _DESC_CELLS))[..., None]
+    ct, st = torch.cos(theta)[..., None], torch.sin(theta)[..., None]
+    xs = xc[..., None] + (ct * ox - st * oy) * step
+    ys = yc[..., None] + (st * ox + ct * oy) * step
+    k = _per_sample
+    gxs = _bilinear_flat(gx_flat, k(lvl), ys, xs, k(H), k(W), k(row0))
+    gys = _bilinear_flat(gy_flat, k(lvl), ys, xs, k(H), k(W), k(row0))
+    # Rotate gradients into the keypoint frame.
+    rgx = ct * gxs + st * gys
+    rgy = -st * gxs + ct * gys
+    mag = torch.sqrt(rgx * rgx + rgy * rgy) * _const(("w_gauss_desc",), lambda: _W_GAUSS_DESC, dev)
+    ang = torch.atan2(rgy, rgx)
+    nb = _DESC_BINS
+    ori_w = _soft_bins((ang / (2 * math.pi) + 0.5) * nb, mag, nb)  # [B, K, 256, 8]
+    w_spatial = _const(("w_spatial",), lambda: _W_SPATIAL, dev)
+    desc = torch.einsum("pc,...pb->...cb", w_spatial, ori_w).flatten(-2)  # [B, K, 128]
+    # Normalize -> clip 0.2 -> renormalize (Lowe).
+    desc = desc / (torch.linalg.vector_norm(desc, dim=-1, keepdim=True) + 1e-12)
+    desc = torch.clamp(desc, max=0.2)
+    return desc / (torch.linalg.vector_norm(desc, dim=-1, keepdim=True) + 1e-12)
 
 
 def _scores(dogs: list, cfg: SIFTConfig, border: int, use_pallas: bool) -> list:
@@ -188,41 +333,78 @@ def _two_peaks(hist: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Te
 
 
 def detect_and_describe(img: torch.Tensor, cfg: SIFTConfig) -> Features:
-    """Detector + dense descriptor for a [B, H, W] batch -> Features with [B, max_keypoints] sets."""
-    if not cfg.fast_descriptor:
-        raise NotImplementedError("vo_tpu_torch ports the fast descriptor path only (fast_descriptor=True)")
+    """Detector + descriptor for a [B, H, W] batch -> Features with [B, max_keypoints] sets
+    (``cfg.fast_descriptor``: the dense-map descriptor, else the Lowe-exact oracle path)."""
     pyr = build_pyramid(img, cfg)
     sig, _ = sigma_schedule(cfg)
     cand = _detect_candidates(pyr, cfg)
     sel, _ = _select_top(cand, cfg.max_keypoints)
+    dev = img.device
+    s = cfg.scales_per_octave
 
     # --- orientation stage (histograms first so multi-peak can duplicate) ---
-    s = cfg.scales_per_octave
-    rows, oct_off, H2s, W2s = [], [], [], []
-    off = 0
-    # Levels 1..s of every octave, read where they lie (views, no copy): kernel K2 in one launch.
-    levels = [G[:, 1 : s + 1] for G in pyr.gauss[: cfg.n_octaves]]
-    raws = kernels.bin_maps_octaves(levels) if cfg.use_pallas else [None] * len(levels)
-    for o in range(cfg.n_octaves):
-        G = pyr.gauss[o]
-        H2, W2 = G.shape[2] // 2, G.shape[3] // 2
-        rows.append(dense_desc.build_bin_map_rows(levels[o], sig[1 : s + 1], use_pallas=cfg.use_pallas, raw=raws[o]))
-        oct_off.append(off)
-        off += s * H2 * W2
-        H2s.append(H2)
-        W2s.append(W2)
-    maps_flat = torch.cat(rows, dim=1)  # [B, N, 8]
-    dev = img.device
-    H2_t, W2_t, off_t = upload(torch.tensor([H2s, W2s, oct_off]), dev)
+    if cfg.fast_descriptor:
+        rows, oct_off, H2s, W2s = [], [], [], []
+        off = 0
+        # Levels 1..s of every octave, read where they lie (views, no copy): kernel K2 in one launch.
+        levels = [G[:, 1 : s + 1] for G in pyr.gauss[: cfg.n_octaves]]
+        raws = kernels.bin_maps_octaves(levels) if cfg.use_pallas else [None] * len(levels)
+        for o in range(cfg.n_octaves):
+            G = pyr.gauss[o]
+            H2, W2 = G.shape[2] // 2, G.shape[3] // 2
+            rows.append(dense_desc.build_bin_map_rows(levels[o], sig[1 : s + 1], use_pallas=cfg.use_pallas, raw=raws[o]))
+            oct_off.append(off)
+            off += s * H2 * W2
+            H2s.append(H2)
+            W2s.append(W2)
+        maps_flat = torch.cat(rows, dim=1)  # [B, N, 8]
+        H2_t, W2_t, off_t = upload(torch.tensor([H2s, W2s, oct_off]), dev)
 
-    def fast_derived(sl):
-        lvl0 = torch.clamp(sl.lvl - 1, 0, s - 1)
-        H2_k = H2_t[sl.octave]
-        W2_k = W2_t[sl.octave]
-        return off_t[sl.octave] + lvl0 * H2_k * W2_k, H2_k, W2_k
+        def derived(sl):
+            lvl0 = torch.clamp(sl.lvl - 1, 0, s - 1)
+            H2_k = H2_t[sl.octave]
+            W2_k = W2_t[sl.octave]
+            return off_t[sl.octave] + lvl0 * H2_k * W2_k, H2_k, W2_k
 
-    row_base, H2_k, W2_k = fast_derived(sel)
-    hist = dense_desc.orientation_hists(maps_flat, row_base, sel.yf, sel.xf, sel.sigma_rel, H2_k, W2_k)
+        def hists(sl):
+            row_base, H2_k, W2_k = derived(sl)
+            return dense_desc.orientation_hists(maps_flat, row_base, sl.yf, sl.xf, sl.sigma_rel, H2_k, W2_k)
+
+        def descriptors(sl, ori):
+            row_base, H2_k, W2_k = derived(sl)
+            return dense_desc.descriptors(maps_flat, row_base, sl.yf, sl.xf, sl.sigma_rel, ori, H2_k, W2_k)
+
+    else:
+        # Lowe-exact oracle path: per-keypoint bilinear sampling from the
+        # flattened multi-octave gradient stacks, one buffer per image.
+        gx_rows, gy_rows, oct_off, GHs, GWs = [], [], [], [], []
+        off = 0
+        for o in range(cfg.n_octaves):
+            G = pyr.gauss[o]
+            gx, gy = gradients(G)
+            gx_rows.append(gx.flatten(1))
+            gy_rows.append(gy.flatten(1))
+            oct_off.append(off)
+            off += G.shape[1] * G.shape[2] * G.shape[3]
+            GHs.append(G.shape[2])
+            GWs.append(G.shape[3])
+        gx_flat = torch.cat(gx_rows, dim=1)  # [B, N]
+        gy_flat = torch.cat(gy_rows, dim=1)
+        GH_t, GW_t, off_t = upload(torch.tensor([GHs, GWs, oct_off]), dev)
+
+        def hists(sl):
+            return _orientation_hist_one(
+                gx_flat, gy_flat, sl.lvl, sl.yf, sl.xf, sl.sigma_rel, GH_t[sl.octave], GW_t[sl.octave], cfg,
+                row0=off_t[sl.octave],
+            )
+
+        def descriptors(sl, ori):
+            return _descriptor_one(
+                gx_flat, gy_flat, sl.lvl, sl.yf, sl.xf, sl.sigma_rel, ori, GH_t[sl.octave], GW_t[sl.octave],
+                row0=off_t[sl.octave],
+            )
+
+    hist = hists(sel)
 
     # --- multi-peak duplication (Lowe/MATLAB >=80% rule), static shapes ---
     if cfg.n_orientations >= 2:
@@ -240,8 +422,7 @@ def detect_and_describe(img: torch.Tensor, cfg: SIFTConfig) -> Features:
         ori = _interp_peak(hist, torch.argmax(hist, dim=-1), hist.shape[-1])
 
     # --- descriptor stage on the final keypoint set ---
-    row_base, H2_k, W2_k = fast_derived(sel)
-    desc = dense_desc.descriptors(maps_flat, row_base, sel.yf, sel.xf, sel.sigma_rel, ori, H2_k, W2_k)
+    desc = descriptors(sel, ori)
 
     oct_scale = torch.pow(2.0, sel.octave.to(torch.float32))
     xy = torch.stack([sel.xf, sel.yf], dim=-1) * oct_scale[..., None]

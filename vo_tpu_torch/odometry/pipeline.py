@@ -21,6 +21,7 @@ from ..geom import se3
 from ..geom.camera import StereoCalib
 from ..geom.triangulate import triangulate_rectified
 from ..pose.ransac import estimate_world_pose
+from ..utils.debug import check_finite
 from ..utils.device import resolve
 from ..utils.padding import gather_rows
 
@@ -104,6 +105,8 @@ def _step_core(
     """
     cap = cfg.max_tracks
     stereo, m_st = stereo_features_with_matches(feats_l, feats_r, cfg.matcher, cap)
+    # (check_finite does nothing outside utils.debug.nan_debug)
+    check_finite("stereo_match", (stereo.l_xy, stereo.r_xy, stereo.l_desc, stereo.r_desc), stereo.mask)
 
     # --- temporal 4-view cascade (VO.m:106-107 / 280-334) ---
     tr: TrackResult = track(state.prev, feats_l, feats_r, cfg.matcher, cap)
@@ -111,21 +114,26 @@ def _step_core(
     cur_r_px = gather_rows(feats_r.xy, tr.cur_r_idx, tr.mask)
     old_l_px = gather_rows(state.prev.l_xy, tr.old_row, tr.mask)
     old_r_px = gather_rows(state.prev.r_xy, tr.old_row, tr.mask)
+    check_finite("track", (cur_l_px, cur_r_px, old_l_px, old_r_px), tr.mask)
 
     # --- triangulate both frames (VO.m:113-116) ---
     X_prev = triangulate_rectified(old_l_px, old_r_px, calib)
     X_cur = triangulate_rectified(cur_l_px, cur_r_px, calib)
     depth_ok = (X_prev[:, 2] > 0.1) & (X_prev[:, 2] < 400.0)
     pose_mask = tr.mask & depth_ok
+    check_finite("triangulate", (X_prev, X_cur), tr.mask)
 
     # --- RANSAC-P3P world pose (VO.m:123-127) ---
     est = estimate_world_pose(cur_l_px, X_prev, pose_mask, calib, cfg.ransac, gen=state.gen, triples=triples)
+
+    check_finite("ransac_p3p", (est.pose_c2w, est.mean_err), est.ok)
 
     # --- chain / fallback (VO.m:130): identity on frame 1, constant velocity on failure ---
     first = state.frame_idx == 0
     eye = torch.eye(4, dtype=state.prev_rel.dtype, device=state.prev_rel.device)
     rel = torch.where(est.ok, est.pose_c2w, torch.where(first, eye, state.prev_rel))
     pose = torch.where(first, state.pose_c2w, se3.compose(state.pose_c2w, rel))
+    check_finite("chain", (rel, pose))
 
     # --- new-landmark selection (VO.m:141-161): stereo pairs whose left feature was not tracked ---
     tracked_l = _membership(m_st.a_idx, m_st.mask, tr.cur_l_idx, tr.mask)
@@ -173,6 +181,12 @@ def _step_core(
     return new_state, out
 
 
+def _detect(imgs: torch.Tensor, cfg: PipelineConfig) -> Features:
+    feats = detect_and_describe(imgs, cfg.sift)
+    check_finite("detect_and_describe", tuple(feats), feats.mask)
+    return feats
+
+
 def _image_features(feats: Features, i: int) -> Features:
     return Features(*(f[i] for f in feats))
 
@@ -184,7 +198,7 @@ def vo_step_multi(state: VOState, frames, calib: StereoCalib, cfg: PipelineConfi
     every image; the serial tracking / RANSAC / chaining then runs frame by
     frame. Returns (state, [FrameOutput x N]).
     """
-    feats = detect_and_describe(torch.stack([_normalize(f) for f in frames]), cfg.sift)
+    feats = _detect(torch.stack([_normalize(f) for f in frames]), cfg)
     outs = []
     for k in range(len(frames) // 2):
         state, out = _step_core(state, _image_features(feats, 2 * k), _image_features(feats, 2 * k + 1), calib, cfg)
@@ -206,7 +220,7 @@ def vo_step(
     mask): loop-closure verification matches the query keyframe's complete
     detections, not just its stereo subset (slam.loop_closure).
     """
-    feats = detect_and_describe(torch.stack([_normalize(left), _normalize(right)]), cfg.sift)
+    feats = _detect(torch.stack([_normalize(left), _normalize(right)]), cfg)
     feats_l = _image_features(feats, 0)
     state, out = _step_core(state, feats_l, _image_features(feats, 1), calib, cfg)
     if return_feats:

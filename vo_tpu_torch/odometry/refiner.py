@@ -1,5 +1,5 @@
 """Background keyframe refiner: BA + loop closure OFF the frame critical path
-(port of vo_tpu.odometry.refiner, without checkpoint/resume).
+(port of vo_tpu.odometry.refiner).
 
 The frame loop only submits keyframes: ``submit`` starts the keyframe
 payload's copies to pinned host memory (utils.host_copy), records a CUDA
@@ -61,6 +61,21 @@ class _KeyframeJob:
 
 
 _WARMUP = object()  # queue sentinel: run the warm-up on the worker thread
+# Queue sentinel: process the STAGED jobs now (checkpoint_state needs the worker
+# fully caught up, not two keyframes behind).
+_FLUSH = object()
+
+
+def _stack(arrs: list, tail_shape: tuple, dtype=np.float32) -> np.ndarray:
+    """np.stack with a typed empty for zero-length lists (npz needs shapes)."""
+    if arrs:
+        return np.stack([np.asarray(a, dtype) for a in arrs])
+    return np.zeros((0,) + tail_shape, dtype)
+
+
+def _landed(*arrays) -> HostCopy:
+    """Copies of host arrays as a HostCopy that has already landed (restored in-flight results)."""
+    return HostCopy(*(torch.from_numpy(np.array(a)) for a in arrays))
 
 
 def global_desc(desc: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -279,6 +294,197 @@ class RefinerWorker:
             err, self._error = self._error, None
             raise err
 
+    # -- checkpoint / resume --------------------------------------------------
+    #
+    # The COMPLETE refinement state (ledgers, LoopCloser archive with the
+    # descriptors read back from the device, loop edges, the in-flight
+    # pipelined rounds (window solves and verification) as host arrays, the
+    # associator's rings) round-trips through a flat numpy dict under the
+    # reference's names, so a resumed run is bit-exact against the
+    # uninterrupted one (tests/test_torch_checkpoint.py).
+
+    def checkpoint_state(self) -> dict:
+        """Drain the worker (staged jobs included) and snapshot the refinement state as a flat
+        {name: np.ndarray} dict for npz persistence. In-flight device results are waited for and
+        read to the host here."""
+        from .checkpoint import generator_fields
+
+        self._q.put(_FLUSH)
+        self.wait_pending()
+        p: dict = {}
+        with self._lock:
+            order = list(self._kf_order)
+            p["ref_kf_order"] = np.asarray(order, np.int64)
+            p["ref_kf_corrected"] = _stack([self._kf_corrected[i] for i in order], (4, 4))
+            p["ref_kf_chain"] = _stack([self._kf_chain[i] for i in order], (4, 4))
+        p["ref_D"] = self._D.copy()
+        p["ref_counters"] = np.asarray([self._loops_closed, self._ba_solves], np.int64)
+        if self.lclo is not None:
+            lc = self.lclo
+            kfs = lc.keyframes
+            host = self._kf_host_arrays(kfs)
+            p["lc_kf_frame_idx"] = np.asarray([k.frame_idx for k in kfs], np.int64)
+            p["lc_kf_pose"] = _stack([k.pose_c2w for k in kfs], (4, 4))
+            p["lc_kf_lpx"] = _stack([h[0] for h in host], (0, 2))
+            p["lc_kf_rpx"] = _stack([h[1] for h in host], (0, 2))
+            p["lc_kf_desc"] = _stack([h[2] for h in host], (0, 128))
+            p["lc_kf_mask"] = _stack([h[3] for h in host], (0,), bool)
+            p["lc_kf_gdesc"] = _stack([k.global_desc for k in kfs], (128,))
+            p["lc_kf_path"] = np.asarray([k.path_m for k in kfs], np.float64)
+            p["lc_edges_a"] = np.asarray([e[0] for e in lc.loop_edges], np.int64)
+            p["lc_edges_b"] = np.asarray([e[1] for e in lc.loop_edges], np.int64)
+            p["lc_edges_Z"] = _stack([e[2] for e in lc.loop_edges], (4, 4))
+            p["lc_scalars"] = np.asarray(
+                [lc.decimations, lc.skipped_small, lc.n_verified, lc._cooldown_left], np.int64
+            )
+            p["lc_path_m"] = np.asarray(lc._path_m, np.float64)
+            p["lc_last_t"] = lc._last_t if lc._last_t is not None else np.full(3, np.nan, np.float64)
+            # lc_key (the reference's PRNG key) is a placeholder here: the
+            # stream is the generator's state, under the port's names.
+            p.update(generator_fields(lc._gen, prefix="lc_"))
+            if lc._pending is not None:
+                ver_fi, cand_fis, outs = lc._pending
+                ok, n_inl, poses, n_m = outs.numpy()
+                p["lc_pend_ver"] = np.asarray(ver_fi, np.int64)
+                p["lc_pend_cands"] = np.asarray(cand_fis, np.int64)
+                p["lc_pend_ok"] = ok
+                p["lc_pend_ninl"] = n_inl
+                p["lc_pend_poses"] = poses
+                p["lc_pend_nm"] = n_m
+        if self.wba is not None:
+            w = self.wba
+            kfs = list(w.window)
+            slots = self.associator._slot_tids
+            p["ba_win_frame_idx"] = np.asarray([k.frame_idx for k in kfs], np.int64)
+            p["ba_win_pose"] = _stack([k.pose_c2w for k in kfs], (4, 4))
+            p["ba_win_lpx"] = _stack([k.l_px for k in kfs], (0, 2))
+            p["ba_win_rpx"] = _stack([k.r_px for k in kfs], (0, 2))
+            p["ba_win_mask"] = _stack([k.mask for k in kfs], (0,), bool)
+            p["ba_win_ids"] = _stack([np.asarray(k.ids, np.int64) for k in kfs], (0,), np.int64)
+            # ids sharing: which associator ring slot each window keyframe's
+            # ids array IS (in-place canonicalization must keep reaching it).
+            p["ba_win_slot"] = np.asarray(
+                [next((s for s, st in enumerate(slots) if st is not None and st is k.ids), -1) for k in kfs],
+                np.int64,
+            )
+            C = self.cfg.max_tracks
+            ring = np.full((len(slots), C), -1, np.int64)
+            for s, st in enumerate(slots):
+                if st is not None:
+                    ring[s] = st
+            p["ba_ring_tids"] = ring
+            p["ba_ring_present"] = np.asarray([st is not None for st in slots], bool)
+            p["ba_next"] = np.asarray(self.associator._next, np.int64)
+            p["ba_rejected"] = np.asarray(w.n_rejected, np.int64)
+            for j, (res, kf_idxs) in enumerate(w._pending):
+                T_c2w, cost, cost0 = res.numpy()
+                p[f"ba_pend{j}_T"] = T_c2w
+                p[f"ba_pend{j}_cost"] = cost
+                p[f"ba_pend{j}_cost0"] = cost0
+                p[f"ba_pend{j}_idxs"] = np.asarray(kf_idxs, np.int64)
+        return p
+
+    @staticmethod
+    def _kf_host_arrays(kfs) -> list:
+        """[(l_px, r_px, l_desc, mask)] of archived keyframes as host arrays; what has no host
+        copy is read back from the keyframes' device tensors, all in one host copy."""
+        names = ("l_px", "r_px", "l_desc", "mask")
+        missing = [(i, j) for i, kf in enumerate(kfs) for j, n in enumerate(names) if getattr(kf, n) is None]
+        read = dict(zip(missing, HostCopy(*(kfs[i].dev[j] for i, j in missing)).numpy())) if missing else {}
+        dtypes = (np.float32, np.float32, np.float32, bool)
+        return [
+            tuple(
+                np.asarray(read[(i, j)] if (i, j) in read else getattr(kf, n), dt)
+                for j, (n, dt) in enumerate(zip(names, dtypes))
+            )
+            for i, kf in enumerate(kfs)
+        ]
+
+    def restore_state(self, p: dict) -> None:
+        """Inverse of checkpoint_state. Call before any submit(). Takes the reference refiner's
+        ``checkpoint_state()`` dict too (the same names; what is kept is copied). The sample stream
+        does not cross between the packages: a state that the reference wrote has no generator
+        fields, and the verification stream is then seeded from its ``lc_key``, so the run
+        continues, but not with the draws the reference would have made."""
+        from .checkpoint import generator_from_fields
+
+        order = [int(i) for i in p["ref_kf_order"]]
+        with self._lock:
+            self._kf_order = order
+            self._kf_corrected = {i: np.array(p["ref_kf_corrected"][k], np.float32) for k, i in enumerate(order)}
+            self._kf_chain = {i: np.array(p["ref_kf_chain"][k], np.float32) for k, i in enumerate(order)}
+        self._D = np.array(p["ref_D"], np.float64)
+        self._loops_closed, self._ba_solves = (int(x) for x in p["ref_counters"])
+        if self.lclo is not None and "lc_kf_frame_idx" in p:
+            from ..slam.loop_closure import ArchivedKeyframe
+
+            lc = self.lclo
+            lc.keyframes = [
+                ArchivedKeyframe(
+                    frame_idx=int(p["lc_kf_frame_idx"][k]),
+                    pose_c2w=np.array(p["lc_kf_pose"][k], np.float32),
+                    l_px=p["lc_kf_lpx"][k],
+                    r_px=p["lc_kf_rpx"][k],
+                    l_desc=p["lc_kf_desc"][k],
+                    mask=p["lc_kf_mask"][k],
+                    global_desc=p["lc_kf_gdesc"][k],
+                    path_m=float(p["lc_kf_path"][k]),
+                    dev=None,  # uploaded on demand (LoopCloser._dev_of)
+                )
+                for k in range(p["lc_kf_frame_idx"].shape[0])
+            ]
+            lc.loop_edges = [
+                (int(a), int(b), np.array(Z)) for a, b, Z in zip(p["lc_edges_a"], p["lc_edges_b"], p["lc_edges_Z"])
+            ]
+            lc.decimations, lc.skipped_small, lc.n_verified, lc._cooldown_left = (int(x) for x in p["lc_scalars"])
+            lc._path_m = float(p["lc_path_m"])
+            lt = np.asarray(p["lc_last_t"])
+            lc._last_t = None if np.isnan(lt).any() else lt
+            lc._gen = generator_from_fields(p, self.device, prefix="lc_")
+            if "lc_pend_ver" in p:
+                lc._pending = (
+                    int(p["lc_pend_ver"]),
+                    [int(x) for x in p["lc_pend_cands"]],
+                    _landed(p["lc_pend_ok"], p["lc_pend_ninl"], p["lc_pend_poses"], p["lc_pend_nm"]),
+                )
+        if self.wba is not None and "ba_win_frame_idx" in p:
+            from .ba_runner import Keyframe
+
+            slots: list = [None] * self.associator.n_slots
+            for s in range(len(slots)):
+                if p["ba_ring_present"][s]:
+                    slots[s] = np.array(p["ba_ring_tids"][s], np.int64)
+            self.associator._slot_tids = slots
+            self.associator._next = int(p["ba_next"])
+            live = set()
+            for st in slots:
+                if st is not None:
+                    live.update(int(t) for t in st[st >= 0])
+            self.associator._parent = {t: t for t in live}  # canonicalized invariant
+            self.wba.window.clear()
+            for k in range(p["ba_win_frame_idx"].shape[0]):
+                s = int(p["ba_win_slot"][k])
+                # The SAME array as the ring slot, or the associator's in-place
+                # canonicalization stops reaching this keyframe.
+                ids = slots[s] if s >= 0 and slots[s] is not None else np.array(p["ba_win_ids"][k])
+                self.wba.window.append(
+                    Keyframe(
+                        frame_idx=int(p["ba_win_frame_idx"][k]),
+                        pose_c2w=np.array(p["ba_win_pose"][k], np.float32),
+                        ids=ids,
+                        l_px=p["ba_win_lpx"][k],
+                        r_px=p["ba_win_rpx"][k],
+                        mask=p["ba_win_mask"][k],
+                    )
+                )
+            self.wba.n_rejected = int(p["ba_rejected"])
+            self.wba._pending.clear()
+            j = 0
+            while f"ba_pend{j}_T" in p:
+                res = _landed(p[f"ba_pend{j}_T"], p[f"ba_pend{j}_cost"], p[f"ba_pend{j}_cost0"])
+                self.wba._pending.append((res, [int(x) for x in p[f"ba_pend{j}_idxs"]]))
+                j += 1
+
     # -- worker thread --------------------------------------------------------
 
     def _finalize(self) -> None:
@@ -325,6 +531,16 @@ class RefinerWorker:
                 except BaseException as e:  # surfaced on the main thread
                     self._error = e
                 self._q.task_done()
+                continue
+            if job is _FLUSH:
+                try:
+                    while staged:
+                        self._process(staged.popleft())
+                except BaseException as e:  # surfaced on the main thread
+                    self._error = e
+                finally:
+                    staged.clear()
+                    self._q.task_done()
                 continue
             if job is None:
                 try:

@@ -17,13 +17,21 @@ at the end (odometry.correction). The port's step is float32 end to end, so
 unlike the reference on a TPU (which pins float32 only when BA is on), its
 refined and plain paths see the same detection stream.
 
-Not ported yet: the device mesh, checkpoint/resume, per-frame
-progress/metrics callbacks and the live figures. Each raises
-``NotImplementedError`` when asked for.
+Any per-frame host consumer (``progress``, ``metrics_path``, periodic
+checkpoints) takes the run off the deferred path: one frame per step, and the
+frame's scalars are read each frame through ONE host copy, which makes the
+host wait for the device once per frame. That wait is the documented cost of
+these options. ``checkpoint_every`` dumps the resumable state
+(odometry.checkpoint, the refiner's included) and ``resume`` restarts from
+it; ``viz_every`` writes the reference's every-Nth-frame figures.
+
+Not ported yet: the device mesh (``mesh`` raises ``NotImplementedError``).
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 from typing import Callable, Optional
 
@@ -33,10 +41,15 @@ import torch
 from ..config import PipelineConfig
 from ..frontend.match import match
 from ..utils.device import resolve
-from ..utils.host_copy import upload
+from ..utils.host_copy import HostCopy, upload
+from ..utils.profiling import MetricsLog, pretty_frame
 from . import landmarks as lm_mod
+from . import checkpoint as ckpt_mod
 from .correction import reanchor_trajectory, rebuild_rel_poses
 from .pipeline import init_state, vo_step, vo_step_multi
+
+
+KITTI_DT = 0.10374  # mean frame period of kitti/00/times.txt (~9.6 Hz)
 
 
 @dataclasses.dataclass
@@ -50,12 +63,6 @@ class RunResult:
     frames_per_sec: float
     per_frame_ms: float
     refine_stats: dict = dataclasses.field(default_factory=dict)
-
-
-def _unsupported(**opts) -> None:
-    for name, value in opts.items():
-        if value:
-            raise NotImplementedError(f"vo_tpu_torch.odometry.runner.run_sequence: {name} is not ported yet")
 
 
 def to_device(img, device) -> torch.Tensor:
@@ -75,6 +82,7 @@ class StagedSequence:
     def __init__(self, seq, n: int, device):
         self.calib = seq.calib
         self.gt_poses = seq.gt_poses
+        self.times = getattr(seq, "times", None)
         self.frames = [tuple(to_device(im, device) for im in seq.frame(i)) for i in range(n)]
 
     def __len__(self) -> int:
@@ -107,6 +115,26 @@ class _Keyframes:
             self.ring_mask = torch.zeros((Kw, Cw), dtype=torch.bool, device=device)
             self.slot = 0
 
+    def checkpoint_state(self) -> Optional[dict]:
+        """RefinerWorker.checkpoint_state + the runner-side associator ring."""
+        p = self.refiner.checkpoint_state()
+        if self.use_ba:
+            ring_desc, ring_mask = HostCopy(self.ring_desc, self.ring_mask).numpy()
+            p["runner_ring_desc"] = np.array(ring_desc)
+            p["runner_ring_mask"] = np.array(ring_mask)
+            p["runner_assoc_slot"] = np.asarray(self.slot, np.int64)
+        return p
+
+    def restore_state(self, p: dict) -> None:
+        self.refiner.restore_state(p)
+        if self.use_ba and "runner_ring_desc" in p:
+            # The descriptor ring feeding the window associator is part of the
+            # resumable state: a zero ring would mis-associate the first resumed window.
+            dev = self.ring_desc.device
+            self.ring_desc = upload(torch.from_numpy(np.array(p["runner_ring_desc"], np.float32)), dev)
+            self.ring_mask = upload(torch.from_numpy(np.array(p["runner_ring_mask"], bool)), dev)
+            self.slot = int(p["runner_assoc_slot"])
+
     def is_keyframe(self, i: int) -> bool:
         return i > 0 and i % self.every == 0
 
@@ -132,24 +160,47 @@ class _Keyframes:
         self.refiner.submit(i, out.pose_c2w, state.prev, assoc=assoc, query=query)
 
 
-def _frame_loop(seq, n: int, group: int, device, state, lmap, run_group, kfs: Optional[_Keyframes]):
-    """Every frame through the step; returns (state, [FrameOutput for frames >= 1])."""
-    hist = []
-    i = 0
-    while i < n:
-        g = group if i + group <= n else 1  # single-frame tail
-        dev_frames = []
-        for k in range(g):
-            dev_frames += [to_device(im, device) for im in seq.frame(i + k)]
-        key = kfs is not None and kfs.is_keyframe(i)
-        if key:
-            kfs.throttle()
-        state, outs, query = run_group(state, lmap, dev_frames)
-        if key:
-            kfs.submit(i, state, outs[0], query)
-        hist += [out for k, out in enumerate(outs) if i + k > 0]  # all_poses starts at frame 2 (VO.m:133)
-        i += g
-    return state, hist
+def _dt_at(seq, i: int) -> float:
+    times = getattr(seq, "times", None)
+    if times is not None and i > 0 and i < len(times):
+        return float(times[i] - times[i - 1])
+    return KITTI_DT
+
+
+def _host_image(img) -> np.ndarray:
+    """A frame as float [H, W] in [0, 1] on the host (for the figures)."""
+    a = img.cpu().numpy() if isinstance(img, torch.Tensor) else np.asarray(img)
+    return a.astype(np.float32) / 255.0 if a.dtype == np.uint8 else a
+
+
+_HIST_FIELDS = ("pose_c2w", "rel_pose", "n_inliers", "n_tracks", "pose_ok")
+
+
+class _History:
+    """Per-frame rows (frames >= 1) of a run: rows already on the host (from a checkpoint, or
+    read frame by frame on the non-deferred path) followed by FrameOutputs still on the device."""
+
+    def __init__(self):
+        self.host: dict = {f: [] for f in _HIST_FIELDS}
+        self.dev: list = []
+
+    def extend_host(self, **rows) -> None:
+        for f, r in rows.items():
+            self.host[f] += list(r)
+
+    def stacked(self) -> dict:
+        """{field: np.ndarray over all rows}; waits for the device where rows are still there."""
+        dtypes = dict(pose_c2w=np.float32, rel_pose=np.float32, n_inliers=np.int32, n_tracks=np.int32, pose_ok=bool)
+        empty = dict(pose_c2w=(0, 4, 4), rel_pose=(0, 4, 4), n_inliers=(0,), n_tracks=(0,), pose_ok=(0,))
+        out = {}
+        for f in _HIST_FIELDS:
+            parts = []
+            if self.host[f]:
+                parts.append(np.asarray(self.host[f], dtypes[f]))
+            if self.dev:
+                parts.append(torch.stack([getattr(o, f) for o in self.dev]).cpu().numpy().astype(dtypes[f]))
+            out[f] = np.concatenate(parts) if parts else np.zeros(empty[f], dtypes[f])
+        return out
 
 
 def run_sequence(
@@ -177,19 +228,23 @@ def run_sequence(
 
     ``insert_landmarks`` defaults to cfg.view_3d (the reference's single flag,
     VO.m:6/145). Frames may be numpy images or tensors already on the device.
-    ``use_ba`` / ``use_loop_closure`` run the refined path (module docstring);
-    ``verbose`` is accepted for the reference's call sites and unused, as there.
+    ``use_ba`` / ``use_loop_closure`` run the refined path (module docstring).
+    With ``checkpoint_every > 0`` the resumable state is dumped to
+    ``checkpoint_path`` periodically; ``resume=True`` restarts from it (on the
+    kind of device that wrote it). ``progress(i, dict)`` and ``metrics_path``
+    (one JSONL row per frame) read every frame's scalars on the host.
+    ``viz_every > 0`` prints the reference's console block every N-th frame and,
+    with ``viz_dir``, writes ``viz_dir``/<i>/{view,map,error,3d_map}.png
+    (VO.m:168-204, 261-277; needs matplotlib). ``verbose`` is accepted for the
+    reference's call sites and unused, as there.
     """
-    _unsupported(
-        progress=progress is not None,
-        checkpoint=bool(checkpoint_path) or checkpoint_every > 0 or resume,
-        metrics_path=metrics_path is not None,
-        viz=viz_every > 0 or viz_dir is not None,
-        mesh=mesh is not None,
-    )
+    if mesh is not None:
+        raise NotImplementedError("vo_tpu_torch.odometry.runner.run_sequence: mesh is not ported yet")
     device = resolve(device)
     # Full float32 everywhere: the geometry needs it (ransac module docstring),
-    # and reduced precision in the pyramid flickers detections.
+    # and reduced precision in the pyramid flickers detections. The reference
+    # reads cfg.matmul_precision here and pins float32 when use_ba; the port's
+    # step has one precision, so that option has no counterpart and is not read.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     calib = seq.calib.to(device)
@@ -197,9 +252,15 @@ def run_sequence(
         insert_landmarks = cfg.view_3d
     n = len(seq) if n_frames is None else min(n_frames, len(seq))
     refined = use_ba or use_loop_closure
+    checkpointing = bool(checkpoint_every and checkpoint_path)
+    # Deferred path: no per-frame host consumer, so the history stays on the
+    # device and the host never waits inside the loop. Refinement stays on it
+    # (the worker owns its host copies); progress / metrics / checkpoints need
+    # per-frame host values.
+    deferred = not (progress is not None or metrics_path is not None or checkpointing)
     # The refined path steps frame by frame: keyframe submission needs
     # state.prev at exact keyframe boundaries.
-    group = 1 if refined else cfg.fused_group
+    group = cfg.fused_group if deferred and not refined else 1
 
     def run_group(state, lmap, dev_frames):
         query = None
@@ -214,6 +275,27 @@ def run_sequence(
                 lm_mod.insert(lmap, out.new_lm_l_px, out.new_lm_r_px, out.new_lm_mask, out.pose_c2w, calib, cfg.landmarks)
         return state, outs, query
 
+    state = init_state(cfg, seed, device)
+    lmap = lm_mod.init_map(cfg.landmarks, device) if insert_landmarks else None
+    hist = _History()
+    start_frame = 0
+    resumed_refiner_state = None
+    if resume and checkpoint_path and os.path.exists(checkpoint_path):
+        ck = ckpt_mod.load(checkpoint_path, device)
+        state, start_frame = ck.state, ck.frame_idx
+        if ck.lmap is not None:
+            lmap = ck.lmap
+        rows = len(ck.poses)
+        # Real per-frame stats (v2 checkpoints); zero-fill only for v1.
+        hist.extend_host(
+            pose_c2w=ck.poses,
+            rel_pose=ck.rel_poses,
+            n_inliers=ck.n_inliers if ck.n_inliers is not None else [0] * rows,
+            n_tracks=ck.n_tracks if ck.n_tracks is not None else [0] * rows,
+            pose_ok=ck.pose_ok if ck.pose_ok is not None else [True] * rows,
+        )
+        resumed_refiner_state = ck.refiner
+
     if warmup:
         # Throwaway state and map: first-use costs (kernel build, library
         # handles, allocator growth) land here, outside the timed loop.
@@ -221,7 +303,7 @@ def run_sequence(
         w_map = lm_mod.init_map(cfg.landmarks, device) if insert_landmarks else None
         if group > 1:
             run_group(init_state(cfg, seed, device), w_map, [l0, r0] * group)
-        if group == 1 or n % group != 0:
+        if group == 1 or (n - start_frame) % group != 0:
             run_group(init_state(cfg, seed, device), w_map, [l0, r0])
         _sync(device)
         del w_map
@@ -234,21 +316,97 @@ def run_sequence(
         # warm-ups run here.
         refiner = RefinerWorker(seq.calib, cfg, use_ba=use_ba, use_loop_closure=use_loop_closure, device=device)
         kfs = _Keyframes(refiner, cfg, device, use_ba)
+        if resumed_refiner_state is not None:
+            # Bit-exact resume of refined runs: ledgers, archive, loop edges,
+            # in-flight rounds, associator rings.
+            kfs.restore_state(resumed_refiner_state)
 
-    state = init_state(cfg, seed, device)
-    lmap = lm_mod.init_map(cfg.landmarks, device) if insert_landmarks else None
+    mlog = MetricsLog(metrics_path) if metrics_path else None
+    gt_poses = getattr(seq, "gt_poses", None)
+    if viz_every and viz_dir:
+        os.makedirs(viz_dir, exist_ok=True)
+
+    def live_viz(i, out, left):
+        # The reference's live telemetry: every-Nth-frame figures and console
+        # block (VO.m:168-204, 261-277). A deliberate wait for the device,
+        # amortized over viz_every frames like the reference's mod(i,100).
+        names = ("pose_c2w", "rel_pose", "tracked_cur_px", "tracked_old_px", "tracked_disp_3d", "tracked_mask")
+        h = dict(zip(names, HostCopy(*(getattr(out, k) for k in names)).numpy()))
+        print(pretty_frame(i, h["rel_pose"], h["pose_c2w"], _dt_at(seq, i)))
+        if not viz_dir:
+            return
+        from ..viz import figures
+
+        poses_so_far = hist.stacked()["pose_c2w"]
+        if len(poses_so_far) == 0:
+            poses_so_far = h["pose_c2w"][None]
+        lms = lmap.xyz[: int(lmap.count)].cpu().numpy() if lmap is not None else None
+        figures.frame_report(
+            viz_dir, i, _host_image(left), h, poses_so_far,
+            np.asarray(gt_poses) if gt_poses is not None else None,
+            times=getattr(seq, "times", None), landmarks=lms,
+        )
+
+    def host_frame(i, out, state, t_frame):
+        """The non-deferred path's per-frame work: one host copy of the frame's scalars, then
+        whoever asked for them."""
+        fields = _HIST_FIELDS + (("mean_reproj_err",) if mlog is not None else ())
+        h = dict(zip(fields, HostCopy(*(getattr(out, f) for f in fields)).numpy()))
+        n_tr, n_in, ok = int(h["n_tracks"]), int(h["n_inliers"]), bool(h["pose_ok"])
+        if i > 0:  # all_poses starts at frame 2 (VO.m:133)
+            hist.extend_host(
+                pose_c2w=[np.array(h["pose_c2w"])], rel_pose=[np.array(h["rel_pose"])],
+                n_inliers=[n_in], n_tracks=[n_tr], pose_ok=[ok],
+            )
+        if progress is not None:
+            progress(i, dict(n_tracks=n_tr, n_inliers=n_in, pose_ok=ok))
+        if mlog is not None:
+            mlog.log(
+                i,
+                n_tracks=n_tr,
+                n_inliers=n_in,
+                inlier_ratio=round(n_in / max(n_tr, 1), 4),
+                pose_ok=ok,
+                mean_reproj_err=float(h["mean_reproj_err"]),
+                frame_ms=round(1000.0 * (time.perf_counter() - t_frame), 2),
+            )
+        if checkpointing and (i + 1) % checkpoint_every == 0:
+            rows = hist.stacked()
+            ckpt_mod.save(
+                checkpoint_path, state, lmap, rows["pose_c2w"], rows["rel_pose"], i + 1,
+                stats=(rows["n_inliers"], rows["n_tracks"], rows["pose_ok"]),
+                refiner_state=kfs.checkpoint_state() if kfs is not None else None,
+            )
+
     t0 = time.perf_counter()
-    state, hist = _frame_loop(seq, n, group, device, state, lmap, run_group, kfs)
+    i = start_frame
+    while i < n:
+        t_frame = time.perf_counter()
+        g = group if i + group <= n else 1  # single-frame tail
+        host_frames = [seq.frame(i + k) for k in range(g)]
+        dev_frames = [to_device(im, device) for lr in host_frames for im in lr]
+        key = kfs is not None and kfs.is_keyframe(i)
+        if key:
+            kfs.throttle()
+        state, outs, query = run_group(state, lmap, dev_frames)
+        if key:
+            kfs.submit(i, state, outs[0], query)
+        for k, out in enumerate(outs):
+            j = i + k
+            if not deferred:
+                host_frame(j, out, state, t_frame)
+            elif j > 0:  # all_poses starts at frame 2 (VO.m:133)
+                hist.dev.append(out)
+            if viz_every and j > 0 and j % viz_every == 0:
+                live_viz(j, out, host_frames[k][0])
+        i += g
     _sync(device)
     wall = time.perf_counter() - t0
+    if mlog is not None:
+        mlog.close()
 
-    def stacked(field, empty_shape, dtype):
-        if not hist:
-            return np.zeros(empty_shape, dtype)
-        return torch.stack([getattr(o, field) for o in hist]).cpu().numpy().astype(dtype)
-
-    poses = stacked("pose_c2w", (0, 4, 4), np.float32)
-    rels = stacked("rel_pose", (0, 4, 4), np.float32)
+    rows = hist.stacked()
+    poses, rels = rows["pose_c2w"], rows["rel_pose"]
     refine_stats: dict = {}
     if refiner is not None:
         refiner.close()
@@ -256,26 +414,51 @@ def run_sequence(
         refine_stats["main_wait_s"] = round(kfs.wait_s, 3)
         kf_idx, kf_poses = refiner.corrected_keyframes()
         # History row for frame i is i-1 (all_poses convention, VO.m:133).
-        rows = kf_idx - 1
-        keep = (rows >= 0) & (rows < poses.shape[0])
+        kf_rows = kf_idx - 1
+        keep = (kf_rows >= 0) & (kf_rows < poses.shape[0])
         if keep.any():
-            poses = reanchor_trajectory(poses, rows[keep], kf_poses[keep])
+            poses = reanchor_trajectory(poses, kf_rows[keep], kf_poses[keep])
             rels = rebuild_rel_poses(poses)
         refine_stats["n_keyframes"] = int(kf_idx.size)
 
     if lmap is not None:
-        count = int(lmap.count)
-        lms = lmap.xyz[:count].cpu().numpy()
+        lms = lmap.xyz[: int(lmap.count)].cpu().numpy()
     else:
         lms = np.zeros((0, 3), np.float32)
+    n_run = n - start_frame
     return RunResult(
         poses=poses,
         rel_poses=rels,
-        n_inliers=stacked("n_inliers", (0,), np.int32),
-        n_tracks=stacked("n_tracks", (0,), np.int32),
-        pose_ok=stacked("pose_ok", (0,), bool),
+        n_inliers=rows["n_inliers"],
+        n_tracks=rows["n_tracks"],
+        pose_ok=rows["pose_ok"],
         landmarks=lms,
-        frames_per_sec=n / wall if wall > 0 else float("nan"),
-        per_frame_ms=1000.0 * wall / max(n, 1),
+        frames_per_sec=n_run / wall if wall > 0 else float("nan"),
+        per_frame_ms=1000.0 * wall / max(n_run, 1),
         refine_stats=refine_stats,
     )
+
+
+def save_result(result: RunResult, out_dir: str) -> None:
+    """npz persistence replacing poses.mat / error.mat / landmarks.mat (VO.m:247-253)."""
+    os.makedirs(out_dir, exist_ok=True)
+    np.savez_compressed(
+        os.path.join(out_dir, "trajectory.npz"),
+        poses=result.poses,
+        rel_poses=result.rel_poses,
+        n_inliers=result.n_inliers,
+        n_tracks=result.n_tracks,
+        pose_ok=result.pose_ok,
+    )
+    np.savez_compressed(os.path.join(out_dir, "landmarks.npz"), landmarks=result.landmarks)
+    with open(os.path.join(out_dir, "stats.json"), "w") as f:
+        json.dump(
+            dict(
+                frames_per_sec=result.frames_per_sec,
+                per_frame_ms=result.per_frame_ms,
+                n_frames=int(result.poses.shape[0]) + 1,
+                **{f"refine_{k}": v for k, v in result.refine_stats.items()},
+            ),
+            f,
+            indent=2,
+        )

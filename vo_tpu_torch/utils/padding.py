@@ -35,3 +35,21 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor | None = 
     if mask is not None:
         out = torch.where(mask.reshape((mask.shape[0],) + (1,) * (out.ndim - 1)), out, fill)
     return out
+
+
+def pad_to(x: torch.Tensor, n: int, fill=0) -> torch.Tensor:
+    """Pad/truncate the leading axis to exactly n rows."""
+    cur = x.shape[0]
+    if cur == n:
+        return x
+    if cur > n:
+        return x[:n]
+    pad = x.new_full((n - cur,) + tuple(x.shape[1:]), fill)
+    return torch.cat([x, pad], dim=0)
+
+
+def masked_topk(scores: torch.Tensor, mask: torch.Tensor, k: int):
+    """top-k over masked scores. Invalid entries score the dtype's minimum. Returns (vals, idx, valid)."""
+    neg = torch.finfo(scores.dtype).min
+    vals, idx = torch.topk(torch.where(mask, scores, neg), k)
+    return vals, idx, vals > neg
