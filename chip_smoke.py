@@ -8,9 +8,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   2. build the hand-written kernels from vo_tpu_torch/csrc with nvcc;
   3. K1 (extrema_scores) and K2 (bin_maps) against their plain PyTorch versions
      on the pyramids of rendered full-size frames, at the shapes the driven
-     paths give them, for both detection batches: 2 images (one frame's left
-     and right: the refined, resumed and per-frame host paths step frame by
-     frame) and 4 images (one group of the deferred plain path, and the
+     paths give them, for every detection batch: 1 image (what a rank of a
+     mesh with a "data" axis of 2 detects: phase 12), 2 images (one frame's
+     left and right: the refined, resumed and per-frame host paths step frame
+     by frame) and 4 images (one group of the deferred plain path, and the
      exact-SIFT call). Octave by octave (K1 must be exact, K2 within 1e-5,
      reading the level slice G[:, 1:4] in place), then the whole detection
      call in one launch per kernel, which must equal the per-octave results
@@ -78,10 +79,32 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      ``run --data``, whose poses must equal the same frames fed from memory;
      and ``Undistorter`` on a staged frame against the CPU (1e-5; the identity
      model returns its input). Figures are asserted only where matplotlib is
-     installed.
+     installed. Also ``run --mesh 1,1`` (passes, in process) and ``run --mesh
+     2,2`` (exits 2 and names the number of cards);
+ 11. the mesh over NCCL, one rank (NCCL refuses two ranks on one card): a
+     world of one on the card, a (1, 1) mesh, and the four sharded entry points
+     called directly (the runner skips them at axis size 1):
+     ``estimate_world_pose_sharded``, ``solve_window_sharded``,
+     ``optimize_sharded`` and ``detect_batch``. Each must equal its
+     single-device function bit for bit, with its collectives real NCCL calls on
+     the current stream, and under ``torch.cuda.set_sync_debug_mode("error")``
+     none may make the host wait. Prints the collectives per call and the ms
+     between CUDA events of each sharded call beside the unsharded one;
+ 12. the mesh as four ranks that SHARE the card over gloo (dist.mesh.launch,
+     ``backend="gloo"``: every collective is staged through pinned host memory):
+     ``run_sequence(mesh=)`` on a (2, 2) mesh over the 30-frame feed at the
+     default config, then on a (1, 2) mesh with ``use_ba=True`` over the first
+     60 frames of the phase-5 feed. Fails unless every rank's result equals rank
+     0's bit for bit, the meshed plain run is within 2e-2 m of phase 4's run
+     with equal pose_ok and ATE within 0.02 m, K1 and K2 were launched on every
+     rank at a detection batch of ONE image, and the BA run has the
+     single-process run's keyframes and at least one accepted solve. A rank that
+     dies or hangs fails the phase with its stderr. The ms per frame printed
+     beside the single-process run's are the overhead of the integration on one
+     shared card, not scaling.
 The line before the last is a JSON summary of the kernels: ``launches`` summed
-over the counted runs of phases 4, 5, 7, 8 and 9 (``launches_by_path`` has each;
-the counters are reset just before each path and read just after), ``max_abs_err`` the larger of the two batches' (``max_abs_err_by_batch`` has
+over the counted runs of phases 4, 5, 7, 8, 9 and rank 0 of phase 12 (``launches_by_path`` has each;
+the counters are reset just before each path and read just after), ``max_abs_err`` the largest of the three batches' (``max_abs_err_by_batch`` has
 each), ``ms`` the one-launch detection call of 4 images with cold inputs, ``octave0_ms``, ``per_octave_launches_ms`` and
 ``copy_same_bytes_ms`` timed the same way, ``back_to_back_ms``, ``plain_ms``
 the plain version over the four octaves, ``bound_ms`` / ``bound_by`` /
@@ -105,15 +128,20 @@ import zlib
 import numpy as np
 import torch
 
-from vo_tpu_torch.config import PipelineConfig
+from vo_tpu_torch.ba import pose_graph, window
+from vo_tpu_torch.config import MeshConfig, PipelineConfig
+from vo_tpu_torch.dist import ba_sharded, frontend_batch, pose_graph_sharded, ransac_sharded
+from vo_tpu_torch.dist import mesh as mesh_mod
 from vo_tpu_torch.eval import metrics
 from vo_tpu_torch.frontend import kernels
 from vo_tpu_torch.frontend.pyramid import build_pyramid
 from vo_tpu_torch.frontend.sift import detect_and_describe
 from vo_tpu_torch.frontend.track import stereo_features_with_matches
+from vo_tpu_torch.geom.triangulate import triangulate_rectified
 from vo_tpu_torch.io import kitti, synthetic, undistort
 from vo_tpu_torch.odometry import checkpoint, runner
 from vo_tpu_torch.odometry.refiner import global_desc
+from vo_tpu_torch.pose import ransac
 from vo_tpu_torch.slam.loop_closure import ArchivedKeyframe, LoopCloser
 from vo_tpu_torch.utils import debug
 
@@ -139,6 +167,9 @@ GROUPED_POSE_TOL = 1e-3  # phase 8: a 2-frame group's batched detection against 
 EXACT_XY_TOL = 1e-4  # phase 9: exact against fast keypoints (tests/test_fast_frontend.py)
 EXACT_CPU_XY, EXACT_CPU_ORI, EXACT_CPU_DESC, EXACT_CPU_SHARED = 1e-2, 1e-2, 2e-3, 0.95  # phase 9: card against CPU
 UNDISTORT_TOL = 1e-5  # phase 10
+MESH_POSE_TOL_M, MESH_ATE_TOL_M = 2e-2, 0.02  # phase 12: meshed against single-process
+MESH_BA_FRAMES = 60  # phase 12: the first frames of the phase-5 feed, enough to solve windows
+MESH_TIMEOUT_S = 300.0  # phase 12: a launched world still running after this long is killed
 SUBPROCESS_TIMEOUT_S = 400
 METRICS_KEYS = {"frame", "n_tracks", "n_inliers", "inlier_ratio", "pose_ok", "mean_reproj_err", "frame_ms"}
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -253,6 +284,9 @@ def check_kernels(feed: runner.StagedSequence, cfg: PipelineConfig) -> dict:
     # The frame-by-frame paths (refined, resumed, per-frame host) detect on one frame's left and
     # right image; the deferred plain path on the images of fused_group frames.
     pair = torch.stack(list(feed.frame(0))).float() / 255.0
+    one = pair[:1]
+    print(f"  detection batch of {one.shape[0]} image (a rank of a mesh whose \"data\" axis is 2):")
+    by_one = against_plain(one, cfg, time_plain=False)["stats"]
     print(f"  detection batch of {pair.shape[0]} images (the frame-by-frame paths):")
     by_pair = against_plain(pair, cfg, time_plain=False)["stats"]
     imgs = torch.stack([im for i in range(cfg.fused_group) for im in feed.frame(i)]).float() / 255.0
@@ -261,9 +295,11 @@ def check_kernels(feed: runner.StagedSequence, cfg: PipelineConfig) -> dict:
     dogs, levels, stats = found["dogs"], found["levels"], found["stats"]
     for name in KERNELS:
         stats[name]["max_abs_err_by_batch"] = {
-            str(pair.shape[0]): by_pair[name]["max_abs_err"], str(imgs.shape[0]): stats[name]["max_abs_err"]
+            str(one.shape[0]): by_one[name]["max_abs_err"],
+            str(pair.shape[0]): by_pair[name]["max_abs_err"],
+            str(imgs.shape[0]): stats[name]["max_abs_err"],
         }
-        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], by_pair[name]["max_abs_err"])
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err_by_batch"].values())
 
     # (the detection call in one launch, the same work as one launch per octave)
     calls = {
@@ -303,7 +339,7 @@ def check_kernels(feed: runner.StagedSequence, cfg: PipelineConfig) -> dict:
             f"by {st['bound_by']} ({st['bytes'] / 1e6:.1f} MB, {st['flop'] / 1e6:.0f} Mflop), share of bound {st['share_of_bound']:.3f}"
         )
     del flush
-    for batch in (pair, imgs):
+    for batch in (one, pair, imgs):
         kernels.reset_launches()
         detect_and_describe(batch, s)
         for name in KERNELS:
@@ -622,14 +658,15 @@ def write_png_gray(path: str, img: np.ndarray) -> None:
                 + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
 
 
-def cli(*argv: str) -> str:
-    """``python -m vo_tpu_torch argv`` from the checkout's root; its output. Fails on a non-zero exit."""
+def cli(*argv: str, expect: int = 0) -> str:
+    """``python -m vo_tpu_torch argv`` from the checkout's root -> its output (its errors where
+    ``expect`` is not 0). Fails on another exit code than ``expect``."""
     proc = subprocess.run(
         [sys.executable, "-m", "vo_tpu_torch", *argv], cwd=REPO, capture_output=True, text=True, timeout=SUBPROCESS_TIMEOUT_S
     )
-    if proc.returncode != 0:
+    if proc.returncode != expect:
         raise AssertionError(f"vo_tpu_torch {' '.join(argv)} exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
-    return proc.stdout
+    return proc.stdout if expect == 0 else proc.stderr
 
 
 def shell_surface(feed, cfg: PipelineConfig, device, tmp: str, run_to_run: float) -> None:
@@ -663,6 +700,16 @@ def shell_surface(feed, cfg: PipelineConfig, device, tmp: str, run_to_run: float
         f"(frames 8-11): {second.splitlines()[-2]}, poses differ by {d_cli:.3e} m; eval ATE rmse {ev['ate']['rmse']:.5f} m; "
         + ("figures written" if have_figures else "figure files not asserted: matplotlib is not installed")
     )
+
+    # (the mesh from the shell: a world of one in process, and a mesh larger than the machine)
+    meshed = cli("run", "--synthetic", "--frames", "12", "--mesh", "1,1", "--out", os.path.join(tmp, "cli_mesh"))
+    poses_meshed = np.load(os.path.join(tmp, "cli_mesh", "trajectory.npz"))["poses"]
+    n_cards = torch.cuda.device_count()
+    refused = cli("run", "--synthetic", "--frames", "12", "--mesh", f"2,{n_cards}", "--out", os.path.join(tmp, "cli_mesh2"), expect=2)
+    want = f"--mesh 2x{n_cards} needs {2 * n_cards} devices, have {n_cards}"
+    if "mesh: {'data': 1, 'model': 1} over 1 gpu devices" not in meshed or poses_meshed.shape != (11, 4, 4) or want not in refused:
+        raise AssertionError(f"--mesh from the shell:\n{meshed}\n{refused}")
+    print(f"     run --mesh 1,1: {meshed.splitlines()[-2]}; run --mesh 2,{n_cards} exits 2: {refused.strip().splitlines()[-1]}")
 
     # (a KITTI directory of 10 rendered frames on disk)
     n = 10
@@ -710,7 +757,245 @@ def shell_surface(feed, cfg: PipelineConfig, device, tmp: str, run_to_run: float
     print(f"     Undistorter (k1 {model.k1}) on a staged frame: card against CPU {d_und:.2e}; {time.perf_counter() - t:.1f} s")
 
 
+def ransac_problem(cfg: PipelineConfig, device):
+    """Correspondences between GT frames 2 and 3 at the step's capacity (cfg.max_tracks rows, the
+    unused ones masked): 0.3 px noise, 30 % outliers."""
+    root = synthetic.DEFAULT_KITTI_ROOT
+    calib = kitti.load_stereo_calib(f"{root}/00")
+    gt = kitti.read_poses(f"{root}/poses/00.txt")
+    rng = np.random.default_rng(0)
+    lm = synthetic.scatter_landmarks(rng, gt[:10], 3000)
+    tr = synthetic.make_tracks(rng, calib, gt[2], gt[3], lm, noise_px=0.3, outlier_frac=0.3, max_points=cfg.max_tracks)
+    n, cap = tr.px_cur_l.shape[0], cfg.max_tracks
+
+    def rows(a):
+        out = np.zeros((cap,) + a.shape[1:], np.float32)
+        out[:n] = a
+        return torch.from_numpy(out).to(device)
+
+    calib = calib.to(device)
+    mask = (torch.arange(cap) < n).to(device)
+    return rows(tr.px_cur_l), triangulate_rectified(rows(tr.px_prev_l), rows(tr.px_prev_r), calib), mask, calib, tr.rel_pose
+
+
+def window_problem(cfg: PipelineConfig, device) -> window.BAProblem:
+    """A full window at the solver's capacity: cfg.ba.window GT keyframes two frames apart observing
+    cfg.ba.max_points landmarks, 0.3 px noise, perturbed initial poses and landmarks."""
+    root = synthetic.DEFAULT_KITTI_ROOT
+    calib = kitti.load_stereo_calib(f"{root}/00")
+    K, M = cfg.ba.window, cfg.ba.max_points
+    gt = kitti.read_poses(f"{root}/poses/00.txt")[: 2 * K : 2]
+    rng = np.random.default_rng(0)
+    lms = synthetic.scatter_landmarks(rng, gt, M)
+    H, W = calib.image_size
+    P1, P2 = (P.numpy().astype(np.float64) for P in (calib.P1, calib.P2))
+    obs, obs_ur, msk = np.zeros((K, M, 2), np.float32), np.zeros((K, M), np.float32), np.zeros((K, M), bool)
+    for k in range(K):
+        cam = synthetic._w2c_apply(gt[k], lms)
+        safe = np.where(cam[:, 2:3] > 1.0, cam, [0, 0, 10.0])
+        px, pxr = synthetic.project_np(P1, safe), synthetic.project_np(P2, safe)
+        msk[k] = (cam[:, 2] > 1.0) & (px[:, 0] >= 0) & (px[:, 0] < W) & (px[:, 1] >= 0) & (px[:, 1] < H)
+        obs[k] = px + rng.normal(scale=0.3, size=px.shape)
+        obs_ur[k] = pxr[:, 0] + rng.normal(scale=0.3, size=M)
+    T0 = gt.astype(np.float32).copy()
+    T0[1:, :3, 3] += rng.normal(scale=0.05, size=(K - 1, 3)).astype(np.float32)
+    X0 = (lms + rng.normal(scale=0.3, size=lms.shape)).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return window.BAProblem(
+        T_c2w=t(T0), X=t(X0), obs_uv=t(obs), obs_mask=t(msk), obs_ur=t(obs_ur), obs_ur_mask=t(msk.copy()),
+        X_mask=torch.ones(M, dtype=torch.bool, device=device), kf_mask=torch.ones(K, dtype=torch.bool, device=device),
+    )
+
+
+def graph_problem(device, K: int = 33) -> pose_graph.PoseGraph:
+    """K GT poses five frames apart chained by their odometry edges, two of them displaced."""
+    gt = kitti.read_poses(f"{synthetic.DEFAULT_KITTI_ROOT}/poses/00.txt")[: 5 * K : 5]
+    T = torch.from_numpy(gt.astype(np.float32)).to(device)
+    edges = pose_graph.odometry_edges(T)
+    pert = T.clone()
+    pert[3, :3, 3] += torch.tensor([0.2, -0.1, 0.15], device=device)
+    pert[K // 2, :3, 3] += torch.tensor([-0.15, 0.05, 0.2], device=device)
+    return pose_graph.PoseGraph(pert, *edges)
+
+
+def same_bits(a, b, what: str) -> None:
+    for name, x, y in zip(a._fields, a, b):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what}: {name} of the sharded call differs from the single-device function's")
+
+
+def nccl_one_rank(feed, cfg: PipelineConfig, device, tmp: str) -> None:
+    """Phase 11: the four sharded entry points on a (1, 1) mesh over NCCL, each against its
+    single-device function, bit for bit and without a host wait."""
+    torch.distributed.init_process_group("nccl", init_method=f"file://{tmp}/nccl_store", world_size=1, rank=0)
+    mesh = mesh_mod.make_mesh(MeshConfig(data=1, model=1), device=device)
+    backends = {ax: torch.distributed.get_backend(mesh.get_group(ax)) for ax in ("data", "model")}
+    if set(backends.values()) != {"nccl"}:
+        raise AssertionError(f"the mesh's groups are not NCCL groups: {backends}")
+
+    px, X, mask, calib, rel = ransac_problem(cfg, device)
+    prob = window_problem(cfg, device)
+    graph = graph_problem(device)
+    imgs = torch.stack([im for i in range(2) for im in feed.frame(i)]).float() / 255.0
+    gens = [torch.Generator(device=device) for _ in range(2)]
+
+    def seeded(i):
+        gens[i].manual_seed(7)
+        return gens[i]
+
+    graph_iters = 8
+    cases = {
+        "estimate_world_pose_sharded": (
+            lambda: ransac_sharded.estimate_world_pose_sharded(px, X, mask, calib, cfg.ransac, seeded(0), mesh),
+            lambda: ransac.estimate_world_pose(px, X, mask, calib, cfg.ransac, gen=seeded(1)),
+            "per RANSAC call",
+        ),
+        "solve_window_sharded": (
+            lambda: ba_sharded.solve_window_sharded(prob, calib, cfg.ba, mesh),
+            lambda: window.solve_window(prob, calib, cfg.ba),
+            f"per window solve of {cfg.ba.iters} iterations",
+        ),
+        "optimize_sharded": (
+            lambda: pose_graph_sharded.optimize_sharded(graph, mesh, iters=graph_iters),
+            lambda: pose_graph.optimize(graph, iters=graph_iters),
+            f"per graph solve of {graph_iters} iterations",
+        ),
+        "detect_batch": (
+            lambda: frontend_batch.detect_batch(imgs, cfg.sift, mesh),
+            lambda: detect_and_describe(imgs, cfg.sift),
+            f"per detection call of {imgs.shape[0]} images",
+        ),
+    }
+    print(f"[11] the mesh over NCCL, world of one on the card: mesh {mesh_mod.mesh_shape(mesh)}, groups {backends}")
+    for name, (sharded, single, per) in cases.items():
+        got, want = sharded(), single()  # also the warm call: NCCL builds its communicator on first use
+        torch.cuda.synchronize()
+        same_bits(got, want, name)
+        mesh_mod.reset_collectives()
+        torch.cuda.set_sync_debug_mode("error")  # a host wait inside the sharded call raises
+        try:
+            sharded()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        n_coll = dict(mesh_mod.COLLECTIVES)
+        if sum(n_coll.values()) < 1:
+            raise AssertionError(f"{name} made no collective")
+        ms_sharded, ms_single = median_ms(sharded, reps=5), median_ms(single, reps=5)
+        print(f"     {name}: equal to the single-device function bit for bit, no host wait; collectives {per} "
+              f"{n_coll}; {ms_sharded:.3f} ms sharded against {ms_single:.3f} ms single between CUDA events (the host's time "
+              f"to enqueue the call where that is the longer)")
+    est = cases["estimate_world_pose_sharded"][0]()
+    d_t = float(np.linalg.norm(est.pose_c2w.cpu().numpy()[:3, 3] - rel[:3, 3]))
+    res = cases["solve_window_sharded"][0]()
+    if not (bool(est.ok) and d_t < 0.1 and float(res.cost) < 0.05 * float(res.cost0)):
+        raise AssertionError(f"sharded RANSAC {d_t} m from the true pose, or the window solve did not converge: {res.cost0} -> {res.cost}")
+    print(f"     sharded RANSAC {d_t:.4f} m from the true relative pose; window cost {float(res.cost0):.1f} -> {float(res.cost):.1f}")
+    torch.distributed.destroy_process_group()
+
+
+class ArrayFeed:
+    """A feed over frames saved as one uint8 array [N, 2, H, W] (what a launched rank reads)."""
+
+    def __init__(self, path: str, calib, gt_poses):
+        self.frames = np.load(path)
+        self.calib, self.gt_poses = calib, gt_poses
+
+    def __len__(self) -> int:
+        return len(self.frames)
+
+    def frame(self, i: int):
+        return self.frames[i, 0], self.frames[i, 1]
+
+
+def save_frames(feed, n: int, path: str) -> None:
+    np.save(path, np.stack([np.stack([im.cpu().numpy() for im in feed.frame(i)]) for i in range(n)]))
+
+
+def mesh_rank(mesh, device, frames_path: str, gt_poses, use_ba: bool) -> dict:
+    """One rank of phase 12: run_sequence(mesh=) over the saved frames at the default config."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    calib = kitti.load_stereo_calib(f"{synthetic.DEFAULT_KITTI_ROOT}/00")
+    seq = ArrayFeed(frames_path, calib, gt_poses)
+    feed = runner.StagedSequence(seq, len(seq), device)
+    cfg = PipelineConfig()
+    batches = []
+    k1 = kernels.extrema_scores_octaves
+
+    def spy(dogs, *a, **k):
+        batches.append(int(dogs[0].shape[0]))
+        return k1(dogs, *a, **k)
+
+    kernels.extrema_scores_octaves = spy
+    runner.run_sequence(feed, cfg, mesh=mesh, device=device, use_ba=use_ba)  # warm run
+    batches.clear()
+    kernels.reset_launches()
+    mesh_mod.reset_collectives()
+    res = runner.run_sequence(feed, cfg, mesh=mesh, device=device, use_ba=use_ba)
+    return dict(
+        poses=res.poses, pose_ok=res.pose_ok, n_inliers=res.n_inliers, per_frame_ms=res.per_frame_ms,
+        launches=dict(kernels.LAUNCHES), collectives=dict(mesh_mod.COLLECTIVES), batches=sorted(set(batches)),
+        n_keyframes=res.refine_stats.get("n_keyframes"), ba_solves=res.refine_stats.get("ba_solves"),
+    )
+
+
+def shared_card_mesh(feed, feed5, cfg: PipelineConfig, device, single: runner.RunResult, gt, tmp: str, launches_by_path: dict) -> None:
+    """Phase 12: four ranks share the card over gloo."""
+
+    def launched(shape, frames_path, gt_poses, use_ba):
+        t = time.perf_counter()
+        per_rank = mesh_mod.launch(
+            mesh_rank, shape, device, backend="gloo", args=(frames_path, gt_poses, use_ba), timeout=MESH_TIMEOUT_S, threads=2
+        )
+        for r, out in enumerate(per_rank):
+            for k in ("poses", "pose_ok", "n_inliers"):
+                if not np.array_equal(out[k], per_rank[0][k]):
+                    raise AssertionError(f"mesh {shape}: {k} of rank {r} differs from rank 0's")
+            if min(out["launches"].values()) <= 0:
+                raise AssertionError(f"mesh {shape}: rank {r} never launched a kernel: {out['launches']}")
+        return per_rank, time.perf_counter() - t
+
+    path = os.path.join(tmp, "frames30.npy")
+    save_frames(feed, N_FRAMES, path)
+    per_rank, secs = launched((2, 2), path, gt, False)
+    m = per_rank[0]
+    launches_by_path["mesh_2x2_rank0"] = m["launches"]
+    d = float(np.linalg.norm(m["poses"][:, :3, 3] - single.poses[:, :3, 3], axis=1).max())
+    ate_m, ate_1 = metrics.ate(m["poses"], gt)["rmse"], metrics.ate(single.poses, gt)["rmse"]
+    print(
+        f"[12] four ranks share the card over gloo, mesh (2, 2), {N_FRAMES} frames at the default config: every rank's poses "
+        f"equal bit for bit; against phase 4's single-process run max |dt| {d:.3e} m, ATE rmse {ate_m:.5f} m against "
+        f"{ate_1:.5f} m; detection batches {[o['batches'] for o in per_rank]}, launches per rank {[o['launches'] for o in per_rank]}, "
+        f"collectives on rank 0 {m['collectives']} ({sum(m['collectives'].values()) / N_FRAMES:.2f} per frame); "
+        f"{m['per_frame_ms']:.3f} ms/frame meshed against {single.per_frame_ms:.3f} ms/frame single-process: the overhead of "
+        f"the integration on one shared card, not scaling; {secs:.1f} s with the ranks' start-up"
+    )
+    if not (d < MESH_POSE_TOL_M and np.array_equal(m["pose_ok"], single.pose_ok) and abs(ate_m - ate_1) < MESH_ATE_TOL_M):
+        raise AssertionError(f"the meshed run left the single-process run: {d} m, ATE {ate_m} against {ate_1}")
+    if any(o["batches"] != [1] for o in per_rank):
+        raise AssertionError(f"a \"data\" axis of 2 must give every rank a detection batch of one image: {[o['batches'] for o in per_rank]}")
+
+    path = os.path.join(tmp, "frames60.npy")
+    save_frames(feed5, MESH_BA_FRAMES, path)
+    gt60 = feed5.gt_poses[:MESH_BA_FRAMES]
+    first60 = ArrayFeed(path, feed5.calib, gt60)
+    one = runner.run_sequence(runner.StagedSequence(first60, MESH_BA_FRAMES, device), cfg, use_ba=True, device=device)
+    per_rank, secs = launched((1, 2), path, gt60, True)
+    m = per_rank[0]
+    launches_by_path["mesh_1x2_ba_rank0"] = m["launches"]
+    d = float(np.linalg.norm(m["poses"][:, :3, 3] - one.poses[:, :3, 3], axis=1).max())
+    print(
+        f"     mesh (1, 2) with window BA, {MESH_BA_FRAMES} frames: ranks equal bit for bit; keyframes {m['n_keyframes']}, accepted "
+        f"solves {m['ba_solves']} (single-process {one.refine_stats['n_keyframes']}, {one.refine_stats['ba_solves']}); max |dt| "
+        f"{d:.3e} m; collectives on rank 0 {m['collectives']}; {m['per_frame_ms']:.3f} ms/frame meshed against "
+        f"{one.per_frame_ms:.3f} ms/frame single-process (overhead on one shared card, not scaling); {secs:.1f} s"
+    )
+    if m["n_keyframes"] != one.refine_stats["n_keyframes"] or not m["ba_solves"] >= 1 or not d < MESH_POSE_TOL_M:
+        raise AssertionError("the meshed BA run does not have the single-process run's keyframes, or no solve was accepted")
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card", file=sys.stderr)
         return 2
@@ -776,6 +1061,8 @@ def main() -> int:
         host_paths(feed, cfg, device, res, tmp, launches_by_path, run_to_run)
         exact_sift(feed, cfg, device, np.asarray(seq.gt_poses), res.frames_per_sec, launches_by_path)
         shell_surface(feed, cfg, device, tmp, max(run_to_run, found["run_to_run"]))
+        nccl_one_rank(feed, cfg, device, tmp)
+        shared_card_mesh(feed, feed5, cfg, device, res, np.asarray(seq.gt_poses), tmp, launches_by_path)
     launches = {k: sum(v[k] for v in launches_by_path.values()) for k in KERNELS}
 
     summary = [
@@ -802,6 +1089,7 @@ def main() -> int:
         )
         for k, meta in KERNELS.items()
     ]
+    print(f"chip_smoke took {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -194,6 +194,93 @@ def test_pose_graph_optimize_np_equals_reference(ref, gt):
     np.testing.assert_array_equal(p_pg._np_log_se3(p_pg._np_exp_se3(xi)), ref.pg._np_log_se3(ref.pg._np_exp_se3(xi)))
 
 
+def _displaced_chain(gt, K=9):
+    """tests/test_dist.py's graph: K GT poses chained by their odometry edges, two of them displaced."""
+    pert = gt[:K].astype(np.float32).copy()
+    pert[3][:3, 3] += [0.2, -0.1, 0.15]
+    pert[6][:3, 3] += [-0.15, 0.05, 0.2]
+    return gt[:K].astype(np.float32), pert
+
+
+def test_pose_graph_device_solver_matches_reference(ref, gt):
+    """odometry_edges, the residuals with their forward-mode Jacobians, and 8 Gauss-Newton
+    iterations, float32 on the device, against the reference's jitted solver."""
+    T_gt, pert = _displaced_chain(gt)
+    jnp = ref.jnp
+    r_edges = ref.pg.odometry_edges(jnp.asarray(T_gt))
+    p_edges = p_pg.odometry_edges(torch.from_numpy(T_gt))
+    for name, a, b in zip(("i", "j", "Z", "mask", "weight"), p_edges, r_edges):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6, err_msg=name)
+        assert a.numpy().dtype == np.asarray(b).dtype, name
+    r_g = ref.pg.PoseGraph(jnp.asarray(pert), *r_edges)
+    p_g = p_pg.PoseGraph(torch.from_numpy(pert), *p_edges)
+
+    want = ref.pg._residuals_and_jac(r_g.T_c2w, r_g)
+    got = p_pg._residuals_and_jac(p_g.T_c2w, p_g)
+    for name, a, b in zip(("r", "Ji", "Jj"), got, want):
+        assert a.dtype == torch.float32 and torch.isfinite(a).all(), name
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5, err_msg=name)
+    # At the GT poses every residual is 0 and xi = 0 sits on log's theta = 0 branch: finite there too.
+    at_zero = p_pg._residuals_and_jac(torch.from_numpy(T_gt), p_g._replace(T_c2w=torch.from_numpy(T_gt)))
+    assert all(torch.isfinite(a).all() for a in at_zero) and float(at_zero[0].abs().max()) < 1e-5
+
+    r_res = ref.pg.optimize(r_g, iters=8)
+    p_res = p_pg.optimize(p_g, iters=8)
+    np.testing.assert_allclose(p_res.T_c2w.numpy(), np.asarray(r_res.T_c2w), atol=2e-4)
+    np.testing.assert_allclose(float(p_res.cost0), float(r_res.cost0), rtol=1e-4)
+    assert float(p_res.cost) < float(p_res.cost0) and float(p_res.cost) < 1e-6
+
+    # and against the port's own host float64 solve of the same graph
+    ei, ej, Z, _, ew = (np.asarray(x) for x in r_edges)
+    T_np, _, _ = p_pg.optimize_np(pert.astype(np.float64), ei, ej, Z.astype(np.float64), ew.astype(np.float64), iters=8)
+    np.testing.assert_allclose(p_res.T_c2w.numpy(), T_np, atol=1e-3)
+
+
+def test_pose_graph_assembly_equals_scatter_add(rng):
+    """The one-hot assembly against plain scatter-adds (the reference's ``.at[].add``), on a graph
+    with a loop edge, a repeated pair and a masked edge."""
+    K, E = 6, 9
+    T = p_pg.se3.exp(torch.from_numpy(rng.normal(0, 0.3, (K, 6)).astype(np.float32)))
+    ei = torch.tensor([0, 1, 2, 3, 4, 0, 1, 1, 2], dtype=torch.int32)
+    ej = torch.tensor([1, 2, 3, 4, 5, 5, 2, 3, 5], dtype=torch.int32)
+    Z = torch.matmul(p_pg.se3.inv(T[ei.long()]), T[ej.long()])
+    Z = torch.matmul(Z, p_pg.se3.exp(torch.from_numpy(rng.normal(0, 0.05, (E, 6)).astype(np.float32))))
+    mask = torch.tensor([True] * 8 + [False])
+    g = p_pg.PoseGraph(T, ei, ej, Z, mask, torch.from_numpy(rng.uniform(0.5, 2.0, E).astype(np.float32)))
+    w = torch.where(mask, g.edge_weight, 0.0)
+    H, b, deg = p_pg.assemble(T, g, w)
+    r, Ji, Jj = p_pg._residuals_and_jac(T, g)
+    H_want, b_want, deg_want = torch.zeros(K, 6, K, 6), torch.zeros(K, 6), torch.zeros(K)
+    for e in range(E):
+        i, j = int(ei[e]), int(ej[e])
+        H_want[i, :, i, :] += w[e] * Ji[e].T @ Ji[e]
+        H_want[j, :, j, :] += w[e] * Jj[e].T @ Jj[e]
+        H_want[i, :, j, :] += w[e] * Ji[e].T @ Jj[e]
+        H_want[j, :, i, :] += w[e] * Jj[e].T @ Ji[e]
+        b_want[i] -= w[e] * Ji[e].T @ r[e]
+        b_want[j] -= w[e] * Jj[e].T @ r[e]
+        deg_want[i] += float(mask[e])
+        deg_want[j] += float(mask[e])
+    np.testing.assert_allclose(H.numpy(), H_want.numpy(), atol=1e-5)
+    np.testing.assert_allclose(b.numpy(), b_want.numpy(), atol=1e-5)
+    np.testing.assert_array_equal(deg.numpy(), deg_want.numpy())
+
+
+def test_windowed_ba_optimize_is_dispatch_then_collect(rng, calib, gt):
+    """``WindowedBA.optimize`` (the reference's synchronous form): None until a window can be
+    assembled, then the poses of the solve and the last keyframe's correction."""
+    kfs = _window_keyframes(rng, calib, gt)
+    wba = p_bar.WindowedBA(calib, BAConfig(window=6, max_points=256, iters=4), device="cpu")
+    wba.add_keyframe(p_bar.Keyframe(**kfs[0]))
+    assert wba.optimize() is None
+    for kf in kfs[1:]:
+        wba.add_keyframe(p_bar.Keyframe(**kf))
+    T_new, corr = wba.optimize()
+    assert T_new.shape == (6, 4, 4) and np.isfinite(T_new).all()
+    np.testing.assert_allclose(corr, T_new[-1] @ np.linalg.inv(wba.window[-1].pose_c2w), atol=1e-6)
+    assert np.linalg.norm(corr[:3, 3]) < 0.5 and not wba._pending
+
+
 def _window_keyframes(rng, calib, gt_poses, K=6, M=300, C=256):
     """K keyframes 2 frames apart observing M landmarks, with detection noise, gross outliers,
     unobserved rows and a few ids pointing at the wrong landmark."""

@@ -1,10 +1,14 @@
 """The port's command line (python -m vo_tpu_torch) in process: the reference's flags, the
-card unless --cpu, and clear exits for what is not ported (--mesh, bench)."""
+card unless --cpu, ``--mesh`` over launched ranks (gloo with --cpu), and clear exits for what is
+malformed or not ported (bench)."""
 import argparse
 import dataclasses
 import json
 import os
 import shutil
+import signal
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -114,7 +118,7 @@ def test_missing_data_dir_exits_2(tmp_path, capsys):
 
 @pytest.mark.parametrize(
     "argv,message",
-    [(["run", "--synthetic", "--cpu", "--mesh", "2,4"], "dist layer is not ported"), (["bench"], "no benchmark yet")],
+    [(["run", "--synthetic", "--cpu", "--mesh", "2"], "--mesh expects DATA,MODEL"), (["bench"], "no benchmark yet")],
 )
 def test_unported_surfaces_exit_2(argv, message, capsys):
     assert p_main.main(argv) == 2
@@ -137,3 +141,37 @@ def test_precision_default_is_accepted_and_explained(tmp_path, capsys):
                       "--out", str(tmp_path / "o"), *SMALL])
     assert rc == 0
     assert "float32 throughout" in capsys.readouterr().out
+
+
+def test_mesh_needs_its_devices(monkeypatch, capsys):
+    """On the card a mesh needs one card per rank; the message is the reference's."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert p_main.main(["run", "--synthetic", "--mesh", "2,2"]) == 2
+    assert "--mesh 2x2 needs 4 devices, have 1" in capsys.readouterr().err
+
+
+def test_run_cpu_mesh_1x2_as_a_command(cli_run, tmp_path):
+    """``run --cpu --mesh 1,2`` as a user types it: the process launches two gloo ranks, rank 0
+    prints the reference's ``mesh:`` line and writes the results, and the ATE is the
+    single-process run's within 0.02 m."""
+    _, single_out = cli_run
+    out = tmp_path / "out"
+    cmd = [sys.executable, "-m", "vo_tpu_torch", "run", "--synthetic", "--frames", "6", "--cpu", "--mesh", "1,2",
+           "--out", str(out), *SMALL]
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent.parent, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=240)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)  # the ranks too
+        raise
+    assert proc.returncode == 0, stderr
+    assert "mesh: {'data': 1, 'model': 2} over 2 cpu devices" in stdout
+    assert stdout.count("ATE rmse") == 1  # rank 0 alone reports
+    meshed = json.load(open(out / "metrics.json"))["ate"]["rmse"]
+    single = json.load(open(single_out / "metrics.json"))["ate"]["rmse"]
+    assert abs(meshed - single) < 0.02
+    assert np.load(out / "trajectory.npz")["poses"].shape == (5, 4, 4)

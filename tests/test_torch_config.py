@@ -162,7 +162,11 @@ def _entry_points(calib, device):
         ).xyz,
         "ba_problem_from_numpy": lambda: convert.ba_problem_from_numpy(prob, **kw).X,
         "archived_keyframe_from_numpy": lambda: convert.archived_keyframe_from_numpy(kf, **kw).dev[0],
-        "checkpoint.load": lambda: checkpoint.load(_checkpoint_file(state), **kw).state.pose_c2w,
+        # (a file's sample stream continues only on the kind of device that wrote it: where the
+        # load goes to the card, so did the state that is saved)
+        "checkpoint.load": lambda: checkpoint.load(
+            _checkpoint_file(pipeline.init_state(cfg, device="cuda") if device is None and torch.cuda.is_available() else state), **kw
+        ).state.pose_c2w,
         "Undistorter": lambda: undistort.Undistorter(calib, undistort.DistortionModel(k1=-0.1), **kw).device,
     }
 

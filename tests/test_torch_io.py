@@ -28,6 +28,29 @@ def test_committed_kitti_00_geometry():
     np.testing.assert_allclose(poses[:, :3, :3] @ poses[:, :3, :3].transpose(0, 2, 1), np.broadcast_to(np.eye(3), (4500, 3, 3)), atol=1e-5)
 
 
+@pytest.mark.parametrize("kw", [dict(noise_px=0.3, outlier_frac=0.3), dict(max_points=150), dict()], ids=["noisy", "capped", "exact"])
+def test_make_tracks_byte_identical(kw):
+    """One seed, both packages: every field of ``Tracks`` equal byte for byte."""
+    r_calib = r_kitti.load_stereo_calib(str(DATA / "kitti" / "00"))
+    p_calib = p_kitti.load_stereo_calib(str(DATA / "kitti" / "00"))
+    gt = p_kitti.read_poses(str(DATA / "kitti" / "poses" / "00.txt"))
+    lm = p_syn.scatter_landmarks(np.random.default_rng(5), gt[:10], 2000)
+    got = p_syn.make_tracks(np.random.default_rng(9), p_calib, gt[2], gt[3], lm, **kw)
+    want = r_syn.make_tracks(np.random.default_rng(9), r_calib, gt[2], gt[3], lm, **kw)
+    assert got._fields == want._fields and got.px_cur_l.shape[0] > 100
+    for name, a, b in zip(got._fields, got, want):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), name
+
+
+def test_sequence_iterates_its_frames():
+    seq = p_syn.kitti_synthetic_sequence(n_frames=2, n_landmarks=300, seed=4, image_size=(94, 310))
+    frames = list(seq)
+    assert len(frames) == 2
+    for i, (l, r) in enumerate(frames):
+        np.testing.assert_array_equal(l, seq.frame(i)[0])
+        np.testing.assert_array_equal(r, seq.frame(i)[1])
+
+
 @pytest.mark.parametrize("image_size", [None, (188, 620)])
 def test_rendered_frames_byte_identical(image_size):
     kw = dict(n_frames=3, n_landmarks=800, seed=4, image_size=image_size)

@@ -306,6 +306,24 @@ def test_bin_maps_kernel_reads_strided_levels_in_one_launch(cuda):
 
 
 @pytest.mark.gpu
+def test_kernels_take_a_detection_batch_of_one(cuda):
+    """One image, all four octaves in one launch per kernel: what a rank of a mesh whose "data"
+    axis is 2 detects (the grid is a tile prefix over B x octaves)."""
+    rng = np.random.default_rng(13)
+    sizes = [(376, 1241), (188, 621), (94, 311), (47, 156)]
+    dogs = [torch.from_numpy(_dog(rng, 5, H, W)[None]).to(cuda) for H, W in sizes]
+    levels = [torch.from_numpy(rng.random((1, 6, H, W), np.float32)).to(cuda)[:, 1:4] for H, W in sizes]
+    n1, n2 = kernels.LAUNCHES["extrema_scores"], kernels.LAUNCHES["bin_maps"]
+    scores, maps = kernels.extrema_scores_octaves(dogs, THR), kernels.bin_maps_octaves(levels)
+    torch.cuda.synchronize()
+    assert (kernels.LAUNCHES["extrema_scores"], kernels.LAUNCHES["bin_maps"]) == (n1 + 1, n2 + 1)
+    for got, d in zip(scores, dogs):
+        assert torch.equal(got, kernels.extrema_scores_plain(d, THR))
+    for got, lev in zip(maps, levels):
+        assert (got - kernels.bin_maps_plain(lev)).abs().max().item() <= 1e-5
+
+
+@pytest.mark.gpu
 def test_kernels_launch_on_the_current_stream(cuda):
     """On a non-default stream (the refiner's worker runs on its own): inputs made on that stream,
     results read after synchronising that stream only."""

@@ -164,8 +164,9 @@ def test_fused_group_matches_group_2(seqs, port_run, group):
 
 @pytest.mark.parametrize("opt", [dict(mesh=object())])
 def test_runner_rejects_unported_options(seqs, opt):
-    """Only the device mesh is left unported; every other option of the reference's runner is taken."""
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """No option of the reference's runner is left unported (the mesh was the last); what is
+    refused is a ``mesh`` that is no DeviceMesh."""
+    with pytest.raises(TypeError, match="mesh must be a torch.distributed DeviceMesh"):
         p_runner.run_sequence(seqs[0], _pcfg(), device="cpu", **opt)
 
 
@@ -193,7 +194,9 @@ def test_port_never_imports_jax():
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
         "ref = sorted(k for k in sys.modules if k == 'vo_tpu' or k.startswith('vo_tpu.'))\n"
         "assert not ref, ref\n"
-        "for m in ('__main__', 'viz.figures', 'odometry.checkpoint', 'io.undistort', 'io.native_loader', 'utils.debug', 'utils.profiling'):\n"
+        "for m in ('__main__', 'viz.figures', 'odometry.checkpoint', 'io.undistort', 'io.native_loader', 'utils.debug', 'utils.profiling',\n"
+        "          'dist.mesh', 'dist.ransac_sharded', 'dist.ba_sharded', 'dist.pose_graph_sharded', 'dist.frontend_batch',\n"
+        "          'dist.multihost_smoke', 'dist.scaling'):\n"
         "    assert 'vo_tpu_torch.' + m in sys.modules, m\n"
         "print('ok', len([k for k in sys.modules if k.startswith('vo_tpu_torch')]))\n"
     )

@@ -3,6 +3,7 @@
     python tools/profile_torch_step.py [--frames 30]
     python tools/profile_torch_step.py --refined
     python tools/profile_torch_step.py --exact
+    python tools/profile_torch_step.py --mesh 1,2 [--ba]
 
 Renders the synthetic KITTI-00 feed (30 frames, 6000 landmarks, seed 0, as
 chip_smoke.py), stages it on the card and runs odometry.runner.run_sequence at
@@ -35,9 +36,20 @@ enqueue, wall time, device busy time, launches and the launches of the two
 hand-written kernels (the exact path launches K1 once and K2 never), the
 kernels that take the most device time, and peak device memory.
 
+With ``--mesh DATA,MODEL`` it profiles ``run_sequence(mesh=)`` on DATA * MODEL
+ranks that SHARE the card over gloo (dist.mesh.launch; every collective is
+staged through pinned host memory): on rank 0 the untraced ms/frame beside the
+single-process run frame by frame, and under torch.profiler that process's
+device busy time and idle share, the number of collectives per frame, the host
+time spent inside them (the stream wait, the host round trip and the wait for
+the peers), and the device time of NCCL kernels (none under gloo) and of all
+device copies (the staging among them). ``--ba`` adds window BA. The ratio of
+the two ms/frame figures is the overhead of the integration on one shared
+card and says nothing about a card per rank.
+
 The summary is also written as JSON to chiprun_out/profile_torch_step.json
 (profile_torch_step_refined.json with ``--refined``, profile_torch_step_exact.json
-with ``--exact``).
+with ``--exact``, profile_torch_step_mesh.json with ``--mesh``).
 """
 from __future__ import annotations
 
@@ -119,6 +131,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--refined", action="store_true", help="profile the refined path (BA + loop closure)")
     ap.add_argument("--exact", action="store_true", help="profile a detection call on the exact-SIFT path")
+    ap.add_argument("--mesh", default=None, metavar="DATA,MODEL", help="profile run_sequence(mesh=) on ranks sharing the card over gloo")
+    ap.add_argument("--ba", action="store_true", help="with --mesh: window BA on (the worker's collectives too)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_step: needs a CUDA card", file=sys.stderr)
@@ -134,6 +148,8 @@ def main() -> int:
         return profile_refined(cfg, dev, card)
     if args.exact:
         return profile_exact(cfg, dev, card, args.reps)
+    if args.mesh:
+        return profile_mesh(cfg, dev, card, tuple(int(x) for x in args.mesh.split(",")), args.frames, args.ba)
     seq = synthetic.kitti_synthetic_sequence(n_frames=args.frames, n_landmarks=6000, seed=0)
     feed = runner.StagedSequence(seq, args.frames, dev)
 
@@ -235,6 +251,92 @@ def profile_exact(cfg: PipelineConfig, dev, card: str, reps: int) -> int:
             print(f"    {v:8.4f} ms  {k[:100]}")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "profile_torch_step_exact.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+    return 0
+
+
+def mesh_rank(mesh, device, frames_path: str, gt_poses, use_ba: bool):
+    """One rank of ``--mesh``: a warm run, an untraced run and (traced on rank 0) a third."""
+    from chip_smoke import ArrayFeed
+
+    from vo_tpu_torch.dist import mesh as mesh_mod
+    from vo_tpu_torch.io import kitti
+
+    calib = kitti.load_stereo_calib(os.path.join(synthetic.DEFAULT_KITTI_ROOT, "00"))
+    seq = ArrayFeed(frames_path, calib, gt_poses)
+    n = len(seq)
+    feed = runner.StagedSequence(seq, n, device)
+    cfg = PipelineConfig()
+
+    def run(warmup=True):
+        return runner.run_sequence(feed, cfg, mesh=mesh, device=device, use_ba=use_ba, warmup=warmup)
+
+    run()  # warm
+    res = run()
+    mesh_mod.reset_collectives()
+    if torch.distributed.get_rank() != 0:
+        run(warmup=False)
+        return None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(warmup=False)
+        torch.cuda.synchronize()
+    evs = device_events(prof)
+    ranges = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("vo_tpu_torch.dist.")]
+    busy = union_ms(evs)
+    summary = dict(
+        mesh=mesh_mod.mesh_shape(mesh),
+        backend=torch.distributed.get_backend(),
+        frames=n,
+        use_ba=use_ba,
+        wall_ms_per_frame=res.per_frame_ms,
+        device_busy_ms_per_frame=busy / n,
+        device_idle_share=1.0 - (busy / n) / res.per_frame_ms,
+        launches_per_frame=len(evs) / n,
+        collectives=dict(mesh_mod.COLLECTIVES),
+        collectives_per_frame=sum(mesh_mod.COLLECTIVES.values()) / n,
+        collective_host_ms_per_frame=sum(e.time_range.elapsed_us() for e in ranges) / 1000.0 / n,
+        collective_ranges_traced=len(ranges),
+        nccl_device_ms_per_frame=sum(e.time_range.elapsed_us() for e in evs if "nccl" in e.name.lower()) / 1000.0 / n,
+        copies_device_ms_per_frame=sum(e.time_range.elapsed_us() for e in evs if "memcpy" in e.name.lower()) / 1000.0 / n,
+        refine_stats={k: v for k, v in res.refine_stats.items() if k in ("n_keyframes", "ba_solves", "main_wait_s")},
+    )
+    return summary
+
+
+def profile_mesh(cfg: PipelineConfig, dev, card: str, shape, n: int, use_ba: bool) -> int:
+    import tempfile
+
+    from chip_smoke import save_frames
+
+    from vo_tpu_torch.dist import mesh as mesh_mod
+
+    seq = synthetic.kitti_synthetic_sequence(n_frames=n, n_landmarks=6000, seed=0)
+    feed = runner.StagedSequence(seq, n, dev)
+    kw = dict(device=dev, use_ba=use_ba)
+    one_cfg = dataclasses.replace(cfg, fused_group=1)  # the mesh steps frame by frame: compare like with like
+    runner.run_sequence(feed, one_cfg, **kw)  # warm
+    single = runner.run_sequence(feed, one_cfg, **kw)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "frames.npy")
+        save_frames(feed, n, path)
+        summary = mesh_mod.launch(
+            mesh_rank, shape, dev, backend="gloo", args=(path, np.asarray(seq.gt_poses), use_ba), timeout=600.0, threads=2
+        )[0]
+    summary.update(card=card, single_process_frame_by_frame_ms_per_frame=single.per_frame_ms)
+    print(
+        f"mesh {summary['mesh']} over {summary['backend']}, ranks sharing the card, {n} frames"
+        + (", window BA" if use_ba else "")
+        + f": {summary['wall_ms_per_frame']:.3f} ms/frame on rank 0 against {single.per_frame_ms:.3f} ms/frame single-process "
+        f"frame by frame (overhead of the integration on one shared card, not scaling); rank 0's device busy "
+        f"{summary['device_busy_ms_per_frame']:.3f} ms/frame, idle share {summary['device_idle_share']:.3f}, "
+        f"{summary['launches_per_frame']:.0f} launches/frame; collectives {summary['collectives']} "
+        f"({summary['collectives_per_frame']:.2f} per frame), {summary['collective_host_ms_per_frame']:.3f} ms/frame of host "
+        f"time inside them; device time of NCCL kernels {summary['nccl_device_ms_per_frame']:.4f} ms/frame, of all device "
+        f"copies {summary['copies_device_ms_per_frame']:.4f} ms/frame; refine_stats {summary['refine_stats']}"
+    )
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "profile_torch_step_mesh.json"), "w") as f:
         json.dump(summary, f, indent=1)
     return 0
 

@@ -1,4 +1,4 @@
-"""vo_tpu_torch — vo_tpu's VO engine (main path, refined path, runtime surface) in PyTorch, with CUDA kernels.
+"""vo_tpu_torch — vo_tpu's VO engine (main path, refined path, runtime surface, device mesh) in PyTorch, with CUDA kernels.
 
 A module-for-module port of the JAX package ``vo_tpu`` (which stays the
 reference): same layout and names, PyTorch idiom inside. The two Pallas TPU
@@ -12,21 +12,23 @@ reference's format), the per-frame ``progress`` / ``metrics_path`` /
 ``viz_every`` options, the command line (``python -m vo_tpu_torch run|eval``:
 the card unless ``--cpu``; ``--checkpoint-every N`` and ``--resume``), the
 Lowe-exact SIFT oracle path (``SIFTConfig(fast_descriptor=False)``),
-undistortion, the KITTI image feed and the dev utilities. Not ported yet: the
-device mesh (``dist/``, ``run_sequence(mesh=)``, ``--mesh``) and a benchmark
-(``bench``). The package imports ``torch``, never ``jax`` and nothing of
+undistortion, the KITTI image feed, the dev utilities, and the device mesh on
+``torch.distributed`` (``dist/``, ``run_sequence(mesh=)``, ``--mesh``: one
+process per rank, NCCL with a card per rank, gloo on the CPU or on a shared
+card). Not ported yet: a benchmark (``bench``). The package imports ``torch``, never ``jax`` and nothing of
 ``vo_tpu``: it keeps its own copies of the configuration, the trajectory
 metrics, the profiling helpers and the figures. Its entry points run on the
 CUDA card unless the caller passes ``device="cpu"``
 (``utils.device.default_device``).
 
 Subpackages:
-  geom      SE(3), stereo calibration, rectified triangulation
+  geom      SE(3) with logarithms and alignment, stereo calibration and projections, rectified and DLT triangulation
   io        KITTI parsers and image feed, native PNG decoder, undistortion, synthetic KITTI-geometry renderer
   frontend  pyramid, CUDA kernels, SIFT detection + dense and exact descriptors, matching, tracking
   pose      P3P, RANSAC
   odometry  per-frame VO step, landmark store, sequence runner, checkpoint, window-BA runner, refiner
-  ba        sliding-window bundle adjustment, host pose-graph solve
+  ba        sliding-window bundle adjustment, pose-graph solve (device float32, host float64)
+  dist      device mesh and rank launcher, sharded RANSAC / window BA / pose graph / detection, smoke and harness
   slam      loop closure
   eval      trajectory metrics
   utils     fixed-capacity padding/masking, non-waiting host/device copies, the default device,

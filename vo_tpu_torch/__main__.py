@@ -7,9 +7,16 @@ figure dumps. ``run`` uses the current CUDA device unless ``--cpu`` is given.
   python -m vo_tpu_torch run --data kitti/00 --poses kitti/poses/00.txt --out out/
   python -m vo_tpu_torch run --data kitti/00 --out out/ --checkpoint-every 500 [--resume]
   python -m vo_tpu_torch eval --trajectory out/trajectory.npz --poses kitti/poses/00.txt
+  python -m vo_tpu_torch run --synthetic --frames 50 --out /tmp/vo --cpu --mesh 1,2
 
-Not ported yet: ``--mesh`` (the dist layer) and ``bench`` (the port has no
-benchmark); both exit with code 2 and say so.
+``--mesh DATA,MODEL`` runs the same command on DATA * MODEL ranks, one process
+each, which this process launches (dist.mesh.launch): on the card that needs
+DATA * MODEL cards (NCCL), with ``--cpu`` it runs on gloo. Rank 0 prints and
+writes the results. Where an outer launcher has set ``RANK`` and
+``WORLD_SIZE`` the process joins that world instead of launching one.
+
+Not ported yet: ``bench`` (the port has no benchmark); it exits with code 2 and
+says so.
 """
 from __future__ import annotations
 
@@ -19,6 +26,10 @@ import os
 import sys
 
 import numpy as np
+
+# Launched ranks of ``run --mesh`` still running after this long are killed (a dead rank ends the
+# run at once; this only bounds a hang).
+MESH_TIMEOUT_S = 24 * 3600.0
 
 
 def _add_run(sub):
@@ -51,8 +62,9 @@ def _add_run(sub):
         "--mesh",
         default=None,
         metavar="DATA,MODEL",
-        help="device-mesh shape, e.g. 2,4 (accepted for the reference's command lines; the dist "
-        "layer is not ported yet, so asking for a mesh exits with an error)",
+        help="device-mesh shape, e.g. 2,4: detection sharded over DATA (1 or 2, the stereo pair), "
+        "RANSAC hypotheses + BA landmarks sharded over MODEL. One process per rank; needs "
+        "DATA*MODEL cards, or --cpu (gloo)",
     )
     p.add_argument("--ba", action="store_true", help="enable sliding-window bundle adjustment")
     p.add_argument("--loop-closure", action="store_true", help="enable loop detection + pose-graph correction")
@@ -120,20 +132,79 @@ def _write_figures(res, gt, err, times, out_dir: str) -> None:
         figures.map_3d(res.landmarks, res.poses, path=os.path.join(out_dir, "3d_map.png"))
 
 
+def _mesh_rank(mesh, device, args) -> int:
+    """One launched rank of ``run --mesh``: the run itself, on the rank's mesh."""
+    return _run(args, device, mesh)
+
+
 def cmd_run(args) -> int:
-    from .eval import metrics
-    from .io import kitti, synthetic
-    from .odometry import runner
+    import torch
+
     from .utils.device import resolve
 
-    if args.mesh:
-        print("error: --mesh: the dist layer is not ported to vo_tpu_torch yet; run without it", file=sys.stderr)
-        return 2
     try:
         device = resolve("cpu" if args.cpu else None)  # the card unless --cpu; never the CPU unasked
     except RuntimeError as e:
         print(f"error: {e} (on the command line: --cpu)", file=sys.stderr)
         return 2
+    if not args.mesh:
+        return _run(args, device, None)
+
+    from .config import MeshConfig
+    from .dist import mesh as mesh_mod
+
+    try:
+        data, model = (int(x) for x in args.mesh.split(","))
+    except ValueError:
+        print("error: --mesh expects DATA,MODEL (e.g. 2,4)", file=sys.stderr)
+        return 2
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        # An outer launcher started this process as one rank of its world: join it.
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        mesh_mod.init_distributed("env://", int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"]), device=device)
+        return _run_and_leave(args, device, mesh_mod.make_mesh(MeshConfig(data=data, model=model), device=device))
+    n_dev = torch.cuda.device_count() if device.type == "cuda" else data * model
+    if data * model > n_dev:
+        print(
+            f"error: --mesh {data}x{model} needs {data * model} devices, have {n_dev} "
+            "(one CUDA card per rank; on the CPU: --cpu)",
+            file=sys.stderr,
+        )
+        return 2
+    if data * model == 1:
+        return _run_and_leave(args, device, mesh_mod.make_mesh(MeshConfig(data=1, model=1), device=device))
+    # One rank per card (NCCL), or all on the CPU (gloo).
+    devices = [f"cuda:{r}" for r in range(data * model)] if device.type == "cuda" else device
+    # The ranks unpickle their function by module name, and a process started with ``-m``
+    # knows this module only as ``__main__``: hand them the function under its importable name.
+    import importlib
+
+    rank_fn = importlib.import_module("vo_tpu_torch.__main__")._mesh_rank
+    return mesh_mod.launch(rank_fn, (data, model), devices, args=(args,), timeout=MESH_TIMEOUT_S, threads=max(1, (os.cpu_count() or 1) // (data * model)))[0]
+
+
+def _run_and_leave(args, device, mesh) -> int:
+    """``_run`` in a world this process joined itself, which it leaves before it exits."""
+    import torch.distributed as dist
+
+    try:
+        return _run(args, device, mesh)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args, device, mesh) -> int:
+    """``run`` on ``device``; under ``mesh`` every rank computes and rank 0 prints and writes."""
+    import torch.distributed as dist
+
+    from .eval import metrics
+    from .io import kitti, synthetic
+    from .odometry import runner
+
+    rank0 = mesh is None or dist.get_rank() == 0
+    say = print if rank0 else (lambda *a, **k: None)
     if args.synthetic:
         seq = synthetic.kitti_synthetic_sequence(n_frames=args.frames or 50, seed=args.seed)
     elif args.data:
@@ -148,21 +219,31 @@ def cmd_run(args) -> int:
                 file=sys.stderr,
             )
             return 2
-        print(f"image decoder: {seq.decoder}")
+        say(f"image decoder: {seq.decoder}")
     else:
         print("error: need --data or --synthetic", file=sys.stderr)
         return 2
     gt = seq.gt_poses
 
-    print(f"device: {device}")
+    say(f"device: {device}")
     cfg = _build_cfg(args)
+    if mesh is not None:
+        import dataclasses
+
+        from .config import MeshConfig
+        from .dist.mesh import mesh_shape
+
+        shape = mesh_shape(mesh)
+        cfg = dataclasses.replace(cfg, mesh=MeshConfig(data=shape["data"], model=shape["model"]))
+        platform = "gpu" if device.type == "cuda" else "cpu"
+        say(f"mesh: {shape} over {dist.get_world_size()} {platform} devices")
     if args.precision == "default":
-        print("note: --precision default: the port's step is float32 throughout; the option changes nothing")
+        say("note: --precision default: the port's step is float32 throughout; the option changes nothing")
     os.makedirs(args.out, exist_ok=True)
 
     def progress(i, info):
         if i % 10 == 0:
-            print(f"frame {i}: tracks={info['n_tracks']} inliers={info['n_inliers']} ok={info['pose_ok']}")
+            say(f"frame {i}: tracks={info['n_tracks']} inliers={info['n_inliers']} ok={info['pose_ok']}")
 
     res = runner.run_sequence(
         seq,
@@ -180,7 +261,10 @@ def cmd_run(args) -> int:
         viz_every=args.viz_every,
         viz_dir=os.path.join(args.out, "img") if args.viz_every else None,
         device=device,
+        mesh=mesh,
     )
+    if not rank0:
+        return 0
     runner.save_result(res, args.out)
     print(f"{res.poses.shape[0] + 1} frames  {res.frames_per_sec:.2f} fps  {res.per_frame_ms:.1f} ms/frame")
 

@@ -1,17 +1,172 @@
-"""Host float64 pose-graph solve for the global loop-closure graph (port of vo_tpu.ba.pose_graph, host part).
+"""Pose-graph optimization over keyframes (port of vo_tpu.ba.pose_graph).
 
+Two solvers of the same problem. The residual of edge (i, j, Z_ij) is
+log(Z_ij^{-1} T_i^{-1} T_j) in R^6.
+
+``optimize`` is the float32 Gauss-Newton on the device: 6x6 Jacobian blocks
+from forward-mode differentiation of the edge residual at zero twist
+(``torch.func.vmap`` over ``torch.func.jvp``), assembled into a dense
+6K x 6K system, fixed iteration count with accept/reject by ``torch.where``,
+first pose anchored. The blocks are assembled by one-hot products over the
+[E, K] incidence (``assemble``), not by scatter-adds: on CUDA
+``index_add_`` / ``index_put_(accumulate=True)`` use atomics, whose float sum
+order varies from run to run, and a matrix product has one order. The dense
+solve is ``torch.linalg.solve_ex`` without its error check, so nothing reads
+the device mid-solve. Only the sharded pose graph (dist.pose_graph_sharded)
+and the tests call it.
+
+``optimize_np`` is the host float64 solve for the global loop-closure graph.
 Redistributing a loop correction along an n-node odometry chain rides
 curvature modes with eigenvalues ~O(1/n^2); at a few hundred keyframes the
 dense 6n x 6n system's condition number (~1e10 with the gauge anchor) exceeds
 float32 resolution and a float32 solve silently under-corrects. The solve is
 rare (one per accepted closure), runs on the refiner's worker thread and is
-small, so it is an exact numpy float64 solve on the host.
-
-The functions are the reference's numpy code, copied verbatim: the reference
-module imports jax at its top. The jitted float32 ``optimize`` and
-``odometry_edges`` serve only the sharded pose graph and are not ported.
+small, so it is an exact numpy solve on the host. Its functions are the
+reference's numpy code, copied verbatim: the reference module imports jax at
+its top.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..dist.mesh import all_reduce_sum_packed
+from ..geom import se3
+
+
+class PoseGraph(NamedTuple):
+    T_c2w: torch.Tensor  # [K, 4, 4] keyframe poses (initial)
+    edge_i: torch.Tensor  # [E] integer source keyframe index
+    edge_j: torch.Tensor  # [E] integer target keyframe index
+    edge_T: torch.Tensor  # [E, 4, 4] measured relative pose T_i^{-1} T_j
+    edge_mask: torch.Tensor  # [E] validity
+    edge_weight: torch.Tensor  # [E] scalar information weight
+
+
+class PoseGraphResult(NamedTuple):
+    T_c2w: torch.Tensor
+    cost0: torch.Tensor
+    cost: torch.Tensor
+
+
+def _edge_residual(xi_i, xi_j, T_i, T_j, Z):
+    """r = log(Z^{-1} (exp(xi_i) T_i)^{-1} (exp(xi_j) T_j)) -> [6]."""
+    Ti = se3.compose(se3.exp(xi_i), T_i)
+    Tj = se3.compose(se3.exp(xi_j), T_j)
+    return se3.log(se3.compose(se3.inv(Z), se3.compose(se3.inv(Ti), Tj)))
+
+
+def _residuals_and_jac(T, g: PoseGraph):
+    """(r [E, 6], Ji [E, 6, 6], Jj [E, 6, 6]): residuals and their Jacobians in the two twists at 0.
+
+    Forward mode, as the reference's ``vmap(jacfwd)``: an edge's residual
+    depends on its own two twists only, so pushing the basis twist e_k of all
+    edges at once through the batched residual gives column k of every edge's
+    block. (The per-edge form, ``vmap(jacfwd)`` over unbatched twists, meets a
+    0-dim dual tensor plus a Python scalar in ``se3.exp``, whose tangent
+    PyTorch promotes to float64.)
+    """
+    E = g.edge_i.shape[0]
+    Ti = T[g.edge_i.long()]
+    Tj = T[g.edge_j.long()]
+    z6 = torch.zeros((E, 6), dtype=T.dtype, device=T.device)
+    r = _edge_residual(z6, z6, Ti, Tj, g.edge_T)
+
+    def column(e):
+        t = e.expand(E, 6)
+        di = torch.func.jvp(lambda a: _edge_residual(a, z6, Ti, Tj, g.edge_T), (z6,), (t,))[1]
+        dj = torch.func.jvp(lambda b: _edge_residual(z6, b, Ti, Tj, g.edge_T), (z6,), (t,))[1]
+        return di, dj
+
+    Di, Dj = torch.func.vmap(column)(torch.eye(6, dtype=T.dtype, device=T.device))  # [6 twists, E, 6]
+    return r, Di.permute(1, 2, 0), Dj.permute(1, 2, 0)
+
+
+def edge_cost(T, g: PoseGraph, w) -> torch.Tensor:
+    """Weighted squared residual of the graph's edges at poses ``T`` (scalar)."""
+    z6 = torch.zeros((g.edge_i.shape[0], 6), dtype=T.dtype, device=T.device)
+    r = _edge_residual(z6, z6, T[g.edge_i.long()], T[g.edge_j.long()], g.edge_T)
+    return torch.sum(w * torch.sum(r * r, dim=-1))
+
+
+def assemble(T, g: PoseGraph, w):
+    """The edges' normal equations: (H [K, 6, K, 6], b [K, 6], deg [K] valid edges per node).
+
+    Each is a sum over the edges, so a shard of the edges gives a partial sum
+    (``optimize`` all-reduces the three over its ``group``). The scatter onto nodes is
+    a product with the one-hot [E, K] incidence matrices (module docstring).
+    """
+    K = T.shape[0]
+    r, Ji, Jj = _residuals_and_jac(T, g)
+    Jiw = Ji * w[:, None, None]
+    Jjw = Jj * w[:, None, None]
+    oi = torch.nn.functional.one_hot(g.edge_i.long(), K).to(T.dtype)  # [E, K]
+    oj = torch.nn.functional.one_hot(g.edge_j.long(), K).to(T.dtype)
+    Hij = torch.einsum("eab,eac->ebc", Jiw, Jj)
+    H = (
+        torch.einsum("ek,el,ebc->kblc", oi, oi, torch.einsum("eab,eac->ebc", Jiw, Ji))
+        + torch.einsum("ek,el,ebc->kblc", oj, oj, torch.einsum("eab,eac->ebc", Jjw, Jj))
+        + torch.einsum("ek,el,ebc->kblc", oi, oj, Hij)
+        + torch.einsum("ek,el,ecb->kblc", oj, oi, Hij)
+    )
+    b = -torch.einsum("ek,eab,ea->kb", oi, Jiw, r) - torch.einsum("ek,eab,ea->kb", oj, Jjw, r)
+    m = g.edge_mask.to(T.dtype)
+    deg = m @ oi + m @ oj
+    return H, b, deg
+
+
+def gn_update(T, lam, H, b, deg) -> torch.Tensor:
+    """Solve the damped, anchored system and apply the step: the candidate poses [K, 4, 4]."""
+    K = T.shape[0]
+    eye6 = torch.eye(6, dtype=T.dtype, device=T.device)
+    # Anchor the gauge (node 0) AND every edge-less node: padded node slots
+    # otherwise leave ~zero diagonal blocks that wreck the float32 LU solve.
+    first = torch.arange(K, device=T.device) == 0
+    anchor = torch.where(first | (deg == 0), 1e6, 0.0).to(T.dtype)
+    Hd = H.clone()
+    torch.diagonal(Hd, dim1=0, dim2=2).permute(2, 0, 1).add_((anchor + lam)[:, None, None] * eye6)
+    dxi = torch.linalg.solve_ex(Hd.reshape(6 * K, 6 * K), b.reshape(6 * K, 1), check_errors=False)[0].reshape(K, 6)
+    return torch.einsum("kij,kjl->kil", se3.exp(dxi), T)
+
+
+def optimize(g: PoseGraph, iters: int = 10, damping: float = 1e-6, group=None) -> PoseGraphResult:
+    """Fixed-iteration damped Gauss-Newton on the graph's device; first keyframe anchored (gauge).
+
+    The damping starts AT the caller's value (no floor: a loop correction
+    rides chain modes with eigenvalues ~O(1/n^2)), drops x0.3 on an accepted
+    step and grows x10 on a rejected one. With ``group``, ``g`` holds this
+    rank's slice of the edges (poses replicated) and the sums over edges are
+    all-reduced: (H, b, deg) in one collective and the candidate's cost in
+    another per iteration, plus the initial cost. Accept/reject compares
+    reduced values, the same bits on every rank.
+    """
+
+    def reduced(*tensors):
+        return list(tensors) if group is None else all_reduce_sum_packed(list(tensors), group)
+
+    w = torch.where(g.edge_mask, g.edge_weight, 0.0)
+    T = g.T_c2w
+    lam = torch.full((), damping, dtype=T.dtype, device=T.device)
+    (cost0,) = reduced(edge_cost(T, g, w))
+    cost = cost0
+    for _ in range(iters):
+        T_try = gn_update(T, lam, *reduced(*assemble(T, g, w)))
+        (cost_try,) = reduced(edge_cost(T_try, g, w))
+        better = cost_try < cost  # NaN compares False: a non-finite step is rejected
+        T = torch.where(better, T_try, T)
+        cost = torch.where(better, cost_try, cost)
+        lam = torch.where(better, torch.clamp(lam * 0.3, min=1e-8), lam * 10.0)
+    return PoseGraphResult(T_c2w=T, cost0=cost0, cost=cost)
+
+
+def odometry_edges(T_c2w: torch.Tensor, weight: float = 1.0):
+    """Consecutive-keyframe edges from a pose chain: Z_i = T_i^{-1} T_{i+1}."""
+    K = T_c2w.shape[0]
+    dev = T_c2w.device
+    i = torch.arange(K - 1, dtype=torch.int32, device=dev)
+    Z = torch.matmul(se3.inv(T_c2w[:-1]), T_c2w[1:])
+    return i, i + 1, Z, torch.ones(K - 1, dtype=torch.bool, device=dev), torch.full((K - 1,), weight, dtype=T_c2w.dtype, device=dev)
 
 
 def _np_exp_so3(w):

@@ -15,8 +15,17 @@ Gauss-Newton (Levenberg-Marquardt) on the stereo reprojection error:
 - the LM loop runs ``cfg.iters`` steps with accept/reject by ``torch.where``,
   so nothing reads the device mid-solve.
 
-float32 throughout (the runner turns TF32 off). The landmark-sharded variant
-(``axis_name``) belongs with the mesh and is not ported.
+float32 throughout (the runner turns TF32 off).
+
+Landmark-sharded solve (the reference's ``axis_name``): every function that
+contracts over the landmark axis takes ``group``, a ``torch.distributed``
+process group whose ranks each hold a slice of M (dist.ba_sharded). The
+partial sums are then all-reduced, packed into one flat buffer per stage, so
+a solve of ``cfg.iters`` steps makes 1 + 3 * iters collectives: the initial
+cost with the observation count, and per step the camera blocks (cost, n_obs,
+U, g_p), the Schur correction (S_corr, rhs_corr) and the candidate's cost.
+Accept/reject compares reduced values only, which are the same bits on every
+rank, so the ranks never part ways.
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import BAConfig
+from ..dist.mesh import all_reduce_sum_packed
 from ..geom import se3
 from ..geom.camera import StereoCalib
 
@@ -142,8 +152,9 @@ def _residuals(T_w2c, X, prob: BAProblem, calib, cfg: BAConfig):
     return r, comp_w, cost, n_obs, A, B
 
 
-def _assemble(T_w2c, X, prob: BAProblem, calib, cfg: BAConfig) -> dict:
-    """Build the Schur-reduced camera system's ingredients."""
+def _assemble(T_w2c, X, prob: BAProblem, calib, cfg: BAConfig, group=None) -> dict:
+    """Build the Schur-reduced camera system's ingredients; with ``group``, the sums over
+    landmarks (cost, n_obs, U, g_p) are all-reduced over the ranks that shard M."""
     r, comp_w, cost, n_obs, A, B = _residuals(T_w2c, X, prob, calib, cfg)
     Aw = A * comp_w[..., None]
     U = torch.einsum("kmia,kmib->kab", Aw, A)  # [K, 6, 6] camera diagonal blocks
@@ -152,6 +163,8 @@ def _assemble(T_w2c, X, prob: BAProblem, calib, cfg: BAConfig) -> dict:
     V = torch.einsum("kmia,kmib->mab", Bw, B)  # [M, 3, 3] landmark blocks
     g_l = -torch.einsum("kmia,kmi->ma", Bw, r)  # [M, 3]
     Wkm = torch.einsum("kmia,kmib->kmab", Aw, B)  # [K, M, 6, 3]
+    if group is not None:
+        cost, n_obs, U, g_p = all_reduce_sum_packed([cost, n_obs, U, g_p], group)
     return dict(U=U, g_p=g_p, V=V, g_l=g_l, Wkm=Wkm, cost=cost, n_obs=n_obs)
 
 
@@ -165,7 +178,7 @@ def _block_diag_(S: torch.Tensor) -> torch.Tensor:
     return torch.diagonal(S, dim1=0, dim2=2).permute(2, 0, 1)
 
 
-def _solve_schur(sys: dict, lam, cfg: BAConfig, kf_mask):
+def _solve_schur(sys: dict, lam, cfg: BAConfig, kf_mask, group=None):
     """Schur-complement solve for (dxi [K,6], dX [M,3]) at damping lam."""
     U, g_p, V, g_l, Wkm = sys["U"], sys["g_p"], sys["V"], sys["g_l"], sys["Wkm"]
     K = U.shape[0]
@@ -176,6 +189,8 @@ def _solve_schur(sys: dict, lam, cfg: BAConfig, kf_mask):
     WV = torch.einsum("kmab,mbc->kmac", Wkm, V_inv)  # [K, M, 6, 3]
     S_corr = torch.einsum("kmac,lmbc->kalb", WV, Wkm)  # [K, 6, K, 6]
     rhs_corr = torch.einsum("kmac,mc->ka", WV, g_l)  # [K, 6]
+    if group is not None:
+        S_corr, rhs_corr = all_reduce_sum_packed([S_corr, rhs_corr], group)
 
     eye6 = torch.eye(6, dtype=U.dtype, device=U.device)
     Ud = U + lam * (U * eye6 + 1e-6 * eye6)
@@ -196,18 +211,28 @@ def _apply_update(T_w2c, X, dxi, dX):
     return torch.einsum("kij,kjl->kil", se3.exp(dxi), T_w2c), X + dX
 
 
-def _cost_only(T_w2c, X, prob, calib, cfg):
-    return _residuals(T_w2c, X, prob, calib, cfg)[2]
+def _cost_only(T_w2c, X, prob, calib, cfg, group=None):
+    cost = _residuals(T_w2c, X, prob, calib, cfg)[2]
+    return cost if group is None else all_reduce_sum_packed([cost], group)[0]
 
 
-def solve_window(prob: BAProblem, calib: StereoCalib, cfg: BAConfig) -> BAResult:
-    """LM-damped Gauss-Newton over the window; every value stays on the problem's device."""
+def solve_window(prob: BAProblem, calib: StereoCalib, cfg: BAConfig, group=None) -> BAResult:
+    """LM-damped Gauss-Newton over the window; every value stays on the problem's device.
+
+    With ``group``, ``prob`` holds this rank's slice of the landmark axis (poses
+    replicated) and the result's ``X`` is that slice (module docstring).
+    """
     T_w2c = se3.inv(prob.T_c2w)
     X = prob.X
-    cost0 = _cost_only(T_w2c, X, prob, calib, cfg)
+    cost0 = _residuals(T_w2c, X, prob, calib, cfg)[2]
+    n_obs = torch.sum(prob.obs_mask & prob.X_mask[None, :] & prob.kf_mask[:, None])
+    if group is not None:
+        cost0, n_obs = all_reduce_sum_packed([cost0, n_obs], group)
 
     # Trust-region prior toward the VO-chained initial poses (see BAConfig):
     # residual = accumulated twist from the initial poses, Jacobian = identity.
+    # Added AFTER the reduced assembly, so that sharded and single-device
+    # solves see the identical (replicated) system.
     dt, dev = prob.X.dtype, prob.X.device
     w6 = torch.cat([torch.full((3,), cfg.prior_t_w, dtype=dt, device=dev), torch.full((3,), cfg.prior_r_w, dtype=dt, device=dev)])
     kf_w = prob.kf_mask.to(dt)[:, None]  # [K, 1]: no prior on frozen slots
@@ -217,18 +242,17 @@ def solve_window(prob: BAProblem, calib: StereoCalib, cfg: BAConfig) -> BAResult
     cost = cost0
     acc = torch.zeros((prob.T_c2w.shape[0], 6), dtype=dt, device=dev)
     for _ in range(cfg.iters):
-        sys = _assemble(T_w2c, X, prob, calib, cfg)
+        sys = _assemble(T_w2c, X, prob, calib, cfg, group)
         sys["U"] = sys["U"] + prior_U
         sys["g_p"] = sys["g_p"] - w6 * acc * kf_w
-        dxi, dX = _solve_schur(sys, lam, cfg, prob.kf_mask)
+        dxi, dX = _solve_schur(sys, lam, cfg, prob.kf_mask, group)
         T_try, X_try = _apply_update(T_w2c, X, dxi, dX)
         acc_try = acc + dxi
-        cost_try = _cost_only(T_try, X_try, prob, calib, cfg) + 0.5 * torch.sum(w6 * acc_try * acc_try * kf_w)
+        cost_try = _cost_only(T_try, X_try, prob, calib, cfg, group) + 0.5 * torch.sum(w6 * acc_try * acc_try * kf_w)
         accept = cost_try < cost  # NaN compares False: a non-finite step is rejected
         T_w2c = torch.where(accept, T_try, T_w2c)
         X = torch.where(accept, X_try, X)
         acc = torch.where(accept, acc_try, acc)
         lam = torch.where(accept, torch.clamp(lam * 0.3, min=1e-9), lam * 4.0)
         cost = torch.where(accept, cost_try, cost)
-    n_obs = torch.sum(prob.obs_mask & prob.X_mask[None, :] & prob.kf_mask[:, None])
     return BAResult(T_c2w=se3.inv(T_w2c), X=X, cost0=cost0, cost=cost, n_obs=n_obs)

@@ -40,6 +40,18 @@ def _blur_maps(maps: torch.Tensor, sigma_rel: float) -> torch.Tensor:
     return blur_separable(maps, gaussian_kernel_1d(sigma_map))
 
 
+def build_bin_maps(G_level: torch.Tensor, sigma_rel: float) -> torch.Tensor:
+    """One Gaussian level [H, W] -> blurred stride-2 bin maps [H2, W2, 8].
+
+    ``sigma_rel`` is the level's scale relative to the octave base; the blur
+    approximates the descriptor cell window sigma_cell = 1.5 * sigma_rel. The
+    pooled maps come from kernel K2 on a CUDA tensor, from its plain version
+    on the CPU.
+    """
+    raw = kernels.bin_maps(G_level[None, None])[0, 0]  # [8, H2, W2]
+    return _blur_maps(raw, sigma_rel).permute(1, 2, 0)
+
+
 def build_bin_map_rows(G_levels: torch.Tensor, sigma_rels, use_pallas: bool = True, raw=None) -> torch.Tensor:
     """[B, L, H, W] Gaussian levels of one octave -> flat [B, L*H2*W2, 8] map rows.
 

@@ -41,6 +41,11 @@ class TrackResult(NamedTuple):
     mask: torch.Tensor  # [C]
 
 
+def stereo_features(feats_l: Features, feats_r: Features, cfg: MatcherConfig, capacity: int) -> StereoFeatures:
+    """The frame's stereo-matched subset (the VO.m:87 + VO.m:141-144 contract)."""
+    return stereo_features_with_matches(feats_l, feats_r, cfg, capacity)[0]
+
+
 def stereo_features_with_matches(
     feats_l: Features, feats_r: Features, cfg: MatcherConfig, capacity: int
 ) -> tuple[StereoFeatures, Matches]:

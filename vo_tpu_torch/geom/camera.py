@@ -26,6 +26,15 @@ class StereoCalib(NamedTuple):
     baseline: float  # meters
     image_size: tuple  # (height, width)
 
+    @property
+    def K(self) -> torch.Tensor:
+        """[3, 3] left intrinsics, with the projection matrices' dtype and device."""
+        return torch.tensor(
+            [[self.fu, 0.0, self.cu], [0.0, self.fv, self.cv], [0.0, 0.0, 1.0]],
+            dtype=self.P1.dtype,
+            device=self.P1.device,
+        )
+
     def to(self, device) -> "StereoCalib":
         return self._replace(P1=self.P1.to(device), P2=self.P2.to(device))
 
@@ -62,3 +71,33 @@ def scale_calib(calib: StereoCalib, image_size) -> StereoCalib:
     P1 = S @ calib.P1.cpu()
     P2 = S @ calib.P2.cpu()
     return calib_from_projections(P1.numpy(), P2.numpy(), image_size=(H1, W1), device=calib.P1.device)
+
+
+def project(P: torch.Tensor, pts3d: torch.Tensor) -> torch.Tensor:
+    """Project [..., N, 3] camera-frame points through a [3, 4] matrix -> [..., N, 2] px."""
+    Xh = torch.cat([pts3d, torch.ones_like(pts3d[..., :1])], dim=-1)
+    uvw = torch.einsum("ij,...nj->...ni", P, Xh)
+    return uvw[..., :2] / (uvw[..., 2:3] + 1e-32)
+
+
+def project_pinhole(calib: StereoCalib, pts_cam: torch.Tensor) -> torch.Tensor:
+    """Project camera-frame points with the left intrinsics only (no baseline)."""
+    z = pts_cam[..., 2:3]
+    u = calib.fu * pts_cam[..., 0:1] / (z + 1e-32) + calib.cu
+    v = calib.fv * pts_cam[..., 1:2] / (z + 1e-32) + calib.cv
+    return torch.cat([u, v], dim=-1)
+
+
+def unproject_pinhole(calib: StereoCalib, px: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """Lift [..., N, 2] pixels at [..., N] depth to camera-frame 3D."""
+    x = (px[..., 0] - calib.cu) / calib.fu * depth
+    y = (px[..., 1] - calib.cv) / calib.fv * depth
+    return torch.stack([x, y, depth], dim=-1)
+
+
+def bearings(calib: StereoCalib, px: torch.Tensor) -> torch.Tensor:
+    """Unit bearing vectors for [..., N, 2] pixels (left camera)."""
+    x = (px[..., 0] - calib.cu) / calib.fu
+    y = (px[..., 1] - calib.cv) / calib.fv
+    v = torch.stack([x, y, torch.ones_like(x)], dim=-1)
+    return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)

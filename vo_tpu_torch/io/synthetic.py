@@ -1,6 +1,7 @@
-"""Synthetic stereo feed through real KITTI geometry (copy of vo_tpu.io.synthetic's renderer).
+"""Synthetic stereo feed through real KITTI geometry (copy of vo_tpu.io.synthetic).
 
-The renderer is plain numpy; it is copied rather than imported because the
+The renderer and the exact-correspondence generator (``make_tracks``) are plain
+numpy; they are copied rather than imported because the
 reference module imports jax through its camera model. For the same seed the
 frames are byte-identical to the reference's (tests/test_torch_io.py). See
 the reference module's docstrings for why the splats look the way they do:
@@ -10,6 +11,8 @@ composited far-to-near, with a 100 m visibility horizon.
 from __future__ import annotations
 
 import os
+
+from typing import NamedTuple
 
 import numpy as np
 
@@ -50,10 +53,72 @@ def scatter_landmarks(
     return out
 
 
+class Tracks(NamedTuple):
+    """Exact correspondences for one frame pair (no images)."""
+
+    px_prev_l: np.ndarray  # [N, 2] left pixels, frame i-1
+    px_prev_r: np.ndarray  # [N, 2] right pixels, frame i-1
+    px_cur_l: np.ndarray  # [N, 2] left pixels, frame i
+    px_cur_r: np.ndarray  # [N, 2] right pixels, frame i
+    pts_prev_cam: np.ndarray  # [N, 3] 3D in frame i-1 camera coords
+    pts_cur_cam: np.ndarray  # [N, 3] 3D in frame i camera coords
+    rel_pose: np.ndarray  # [4, 4] camera-i pose in frame i-1 coords (the estworldpose target)
+
+
 def project_np(P: np.ndarray, pts_cam: np.ndarray) -> np.ndarray:
     Xh = np.concatenate([pts_cam, np.ones_like(pts_cam[:, :1])], axis=-1)
     uvw = Xh @ P.T
     return uvw[:, :2] / uvw[:, 2:3]
+
+
+def make_tracks(
+    rng: np.random.Generator,
+    calib: StereoCalib,
+    pose_prev_c2w: np.ndarray,
+    pose_cur_c2w: np.ndarray,
+    landmarks_world: np.ndarray,
+    noise_px: float = 0.0,
+    outlier_frac: float = 0.0,
+    max_points: int | None = None,
+) -> Tracks:
+    """Correspondences between two stereo frames for landmarks visible in all 4 views."""
+    H, W = calib.image_size
+    P1 = calib.P1.cpu().numpy().astype(np.float64)
+    P2 = calib.P2.cpu().numpy().astype(np.float64)
+
+    prev_cam = _w2c_apply(pose_prev_c2w, landmarks_world)
+    cur_cam = _w2c_apply(pose_cur_c2w, landmarks_world)
+    pxs = [project_np(P, pts) for P, pts in ((P1, prev_cam), (P2, prev_cam), (P1, cur_cam), (P2, cur_cam))]
+    vis = (prev_cam[:, 2] > 1.0) & (cur_cam[:, 2] > 1.0)
+    for px in pxs:
+        vis &= (px[:, 0] >= 0) & (px[:, 0] < W) & (px[:, 1] >= 0) & (px[:, 1] < H)
+    keep = np.flatnonzero(vis)
+    if max_points is not None and keep.size > max_points:
+        keep = rng.choice(keep, size=max_points, replace=False)
+    pxs = [px[keep] for px in pxs]
+    prev_cam, cur_cam = prev_cam[keep], cur_cam[keep]
+
+    if noise_px > 0:
+        pxs = [px + rng.normal(scale=noise_px, size=px.shape) for px in pxs]
+    n = keep.size
+    if outlier_frac > 0 and n > 0:
+        n_out = int(outlier_frac * n)
+        out_idx = rng.choice(n, size=n_out, replace=False)
+        # Corrupt the current-left observation (the one RANSAC scores against).
+        pxs[2][out_idx] = np.stack(
+            [rng.uniform(0, W, n_out), rng.uniform(0, H, n_out)], axis=-1
+        )
+
+    rel = np.linalg.inv(pose_prev_c2w) @ pose_cur_c2w
+    return Tracks(
+        px_prev_l=pxs[0],
+        px_prev_r=pxs[1],
+        px_cur_l=pxs[2],
+        px_cur_r=pxs[3],
+        pts_prev_cam=prev_cam,
+        pts_cur_cam=cur_cam,
+        rel_pose=rel,
+    )
 
 
 class SyntheticSequence:
@@ -158,6 +223,10 @@ class SyntheticSequence:
             left = np.clip(left + rl.normal(0.0, self.noise, left.shape).astype(np.float32), 0.0, 1.0)
             right = np.clip(right + rr.normal(0.0, self.noise, right.shape).astype(np.float32), 0.0, 1.0)
         return left, right
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self.frame(i)
 
 
 def kitti_synthetic_sequence(

@@ -26,6 +26,8 @@ import torch
 from ..ba.window import BAProblem, solve_window
 from ..config import BAConfig
 from ..convert import ba_problem_from_numpy
+from ..dist.ba_sharded import solve_window_sharded
+from ..dist.mesh import axis_size
 from ..geom.camera import StereoCalib
 from ..utils.device import resolve
 from ..utils.host_copy import HostCopy
@@ -143,11 +145,18 @@ class WindowAssociator:
 class WindowedBA:
     """Keyframe window + device solver; returns pose corrections."""
 
-    def __init__(self, calib: StereoCalib, cfg: BAConfig, device=None):
+    def __init__(self, calib: StereoCalib, cfg: BAConfig, device=None, mesh=None, group=None):
+        """``mesh`` with a "model" axis > 1 runs every window solve landmark-sharded over it
+        (dist.ba_sharded: the same solver, its landmark sums all-reduced); every rank of the
+        axis then holds the same window and calls the same methods in the same order.
+        ``group`` is the process group the solve reduces over, for a caller on a thread of
+        its own (the refiner's worker); None is the mesh's own group."""
         self.calib = calib.to("cpu")  # the window assembly reads it on the host
         self.cfg = cfg
         self.device = resolve(device)
         self._calib_dev = calib.to(self.device)
+        self._mesh = mesh if axis_size(mesh, "model") > 1 else None
+        self._group = group
         self.window: deque = deque(maxlen=cfg.window)
         self.n_rejected = 0  # solves discarded by the correction sanity gate
         # In-flight solves: (HostCopy of T_c2w/cost/cost0, window frame_idxs at
@@ -157,6 +166,8 @@ class WindowedBA:
         self.n_candidate: list[int] = []  # multi-view tracks before capacity cap
 
     def _solve(self, prob: BAProblem):
+        if self._mesh is not None:
+            return solve_window_sharded(prob, self._calib_dev, self.cfg, self._mesh, group=self._group)
         return solve_window(prob, self._calib_dev, self.cfg)
 
     def warmup(self) -> None:
@@ -336,3 +347,15 @@ class WindowedBA:
                 continue
             out.append((kf_idxs, T_new))
         return out
+
+    def optimize(self):
+        """Synchronous dispatch + collect (tests / non-pipelined callers).
+        Returns (T_new, correction_of_last_kf) or None."""
+        self.drop_pending()
+        if not self.dispatch():
+            return None
+        got = self.collect(drain=True)
+        if not got:
+            return None
+        _, T_new = got[-1]
+        return T_new, T_new[-1] @ np.linalg.inv(self.window[-1].pose_c2w)

@@ -15,6 +15,9 @@ from typing import NamedTuple
 import torch
 
 from ..config import PipelineConfig
+from ..dist.frontend_batch import detect_batch
+from ..dist.mesh import axis_size
+from ..dist.ransac_sharded import estimate_world_pose_sharded
 from ..frontend.sift import Features, detect_and_describe
 from ..frontend.track import StereoFeatures, TrackResult, stereo_features_with_matches, track
 from ..geom import se3
@@ -98,10 +101,13 @@ def _step_core(
     calib: StereoCalib,
     cfg: PipelineConfig,
     triples: torch.Tensor | None = None,
+    pose_fn=None,
 ) -> tuple[VOState, FrameOutput]:
     """Everything after detection: the serial, pose-dependent part of a frame.
 
     RANSAC draws from ``state.gen`` unless ``triples`` [H, 3] are given.
+    ``pose_fn(px2d, pts3d, mask, gen, triples)`` replaces the single-device
+    estimate (the mesh's hypothesis-sharded one: ``_mesh_step_overrides``).
     """
     cap = cfg.max_tracks
     stereo, m_st = stereo_features_with_matches(feats_l, feats_r, cfg.matcher, cap)
@@ -124,7 +130,10 @@ def _step_core(
     check_finite("triangulate", (X_prev, X_cur), tr.mask)
 
     # --- RANSAC-P3P world pose (VO.m:123-127) ---
-    est = estimate_world_pose(cur_l_px, X_prev, pose_mask, calib, cfg.ransac, gen=state.gen, triples=triples)
+    if pose_fn is None:
+        est = estimate_world_pose(cur_l_px, X_prev, pose_mask, calib, cfg.ransac, gen=state.gen, triples=triples)
+    else:
+        est = pose_fn(cur_l_px, X_prev, pose_mask, state.gen, triples)
 
     check_finite("ransac_p3p", (est.pose_c2w, est.mean_err), est.ok)
 
@@ -181,8 +190,33 @@ def _step_core(
     return new_state, out
 
 
-def _detect(imgs: torch.Tensor, cfg: PipelineConfig) -> Features:
-    feats = detect_and_describe(imgs, cfg.sift)
+def _mesh_step_overrides(calib: StereoCalib, cfg: PipelineConfig, mesh):
+    """(pose_fn, data_sharded) routing the step through the dist layer.
+
+    "model" axis > 1 -> hypothesis-sharded RANSAC (dist.ransac_sharded: every
+    rank scores its rows of the replicated draw, one all-gather picks the
+    winner); "data" axis > 1 -> the stereo detection batch sharded across the
+    axis (dist.frontend_batch: the batch is the L/R pair, so data must be 1 or
+    2; each data rank detects ONE image and the pair's features are
+    all-gathered before the replicated ``_step_core``).
+    """
+    if mesh is None:
+        return None, False
+    pose_fn = None
+    if axis_size(mesh, "model") > 1:
+
+        def pose_fn(px2d, pts3d, mask, gen, triples=None):
+            return estimate_world_pose_sharded(px2d, pts3d, mask, calib, cfg.ransac, gen, mesh, triples=triples)
+
+    data = axis_size(mesh, "data")
+    if data > 1 and data != 2:
+        raise ValueError(f"integrated step shards the stereo pair on 'data'; axis size {data} != 2")
+    return pose_fn, data > 1
+
+
+def _detect(imgs: torch.Tensor, cfg: PipelineConfig, mesh=None) -> Features:
+    """Detect + describe ``imgs`` [B, H, W]; with ``mesh``, sharded over its "data" axis."""
+    feats = detect_and_describe(imgs, cfg.sift) if mesh is None else detect_batch(imgs, cfg.sift, mesh)
     check_finite("detect_and_describe", tuple(feats), feats.mask)
     return feats
 
@@ -213,16 +247,24 @@ def vo_step(
     calib: StereoCalib,
     cfg: PipelineConfig,
     return_feats: bool = False,
+    pose_fn=None,
+    mesh=None,
 ):
     """One frame -> (state, FrameOutput).
 
     ``return_feats`` also returns the FULL left detection set (xy, desc,
     mask): loop-closure verification matches the query keyframe's complete
-    detections, not just its stereo subset (slam.loop_closure).
+    detections, not just its stereo subset (slam.loop_closure). ``mesh`` (a
+    ``DeviceMesh`` from dist.mesh.make_mesh) runs the step distributed: every
+    rank of the mesh calls it with the same arguments and ends with the same
+    state (``_mesh_step_overrides``); ``pose_fn`` overrides the pose estimate.
     """
-    feats = _detect(torch.stack([_normalize(left), _normalize(right)]), cfg)
+    mesh_pose_fn, data_sharded = _mesh_step_overrides(calib, cfg, mesh)
+    feats = _detect(torch.stack([_normalize(left), _normalize(right)]), cfg, mesh if data_sharded else None)
     feats_l = _image_features(feats, 0)
-    state, out = _step_core(state, feats_l, _image_features(feats, 1), calib, cfg)
+    state, out = _step_core(
+        state, feats_l, _image_features(feats, 1), calib, cfg, pose_fn=pose_fn if pose_fn is not None else mesh_pose_fn
+    )
     if return_feats:
         return state, out, (feats_l.xy, feats_l.desc, feats_l.mask)
     return state, out

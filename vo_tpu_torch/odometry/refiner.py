@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..config import PipelineConfig
+from ..dist.mesh import axis_size, new_axis_group
 from ..geom.camera import StereoCalib
 from ..utils.device import resolve
 from ..utils.host_copy import HostCopy
@@ -136,7 +137,16 @@ class RefinerWorker:
         use_ba: bool,
         use_loop_closure: bool,
         device=None,
+        mesh=None,
     ):
+        """``mesh`` with a "model" axis > 1 shards the window solve over it. The solve's
+        collectives then run on this worker's thread (and CUDA stream) while the frame
+        loop's RANSAC gathers on the main thread, over the same ranks: two threads must
+        never share a communicator, so the worker gets a process group of its own, created
+        here. That creation is collective: every rank of the world builds its worker at the
+        same point of its program. What the worker decides never depends on timing (jobs in
+        FIFO order, solves collected a fixed number of keyframes later), so every rank's
+        worker issues the same collectives in the same order."""
         self.calib = calib
         self.cfg = cfg
         self.device = resolve(device)
@@ -148,7 +158,8 @@ class RefinerWorker:
         if use_ba:
             from .ba_runner import WindowAssociator, WindowedBA
 
-            self.wba = WindowedBA(calib, cfg.ba, device=self.device)
+            group = new_axis_group(mesh, "model") if axis_size(mesh, "model") > 1 else None
+            self.wba = WindowedBA(calib, cfg.ba, device=self.device, mesh=mesh, group=group)
             self.associator = WindowAssociator(cfg.ba.window)
         if use_loop_closure:
             from ..slam.loop_closure import LoopCloser

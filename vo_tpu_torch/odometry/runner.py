@@ -25,7 +25,12 @@ these options. ``checkpoint_every`` dumps the resumable state
 (odometry.checkpoint, the refiner's included) and ``resume`` restarts from
 it; ``viz_every`` writes the reference's every-Nth-frame figures.
 
-Not ported yet: the device mesh (``mesh`` raises ``NotImplementedError``).
+With ``mesh`` (dist.mesh.make_mesh) the run is SPMD: every rank of the mesh
+calls ``run_sequence`` with the same arguments, keeps the same replicated
+state and returns the same ``RunResult``. Detection is sharded over "data",
+RANSAC hypotheses over "model", and with ``use_ba`` the window solve's
+landmarks over "model" too. Only rank 0 writes files (checkpoints, metrics,
+figures); ``resume`` loads the one checkpoint on every rank.
 """
 from __future__ import annotations
 
@@ -37,6 +42,8 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from ..config import PipelineConfig
 from ..frontend.match import match
@@ -236,11 +243,14 @@ def run_sequence(
     ``viz_every > 0`` prints the reference's console block every N-th frame and,
     with ``viz_dir``, writes ``viz_dir``/<i>/{view,map,error,3d_map}.png
     (VO.m:168-204, 261-277; needs matplotlib). ``verbose`` is accepted for the
-    reference's call sites and unused, as there.
+    reference's call sites and unused, as there. ``mesh`` routes the step through
+    the dist layer (module docstring); every rank of the mesh makes this call.
     """
-    if mesh is not None:
-        raise NotImplementedError("vo_tpu_torch.odometry.runner.run_sequence: mesh is not ported yet")
     device = resolve(device)
+    if mesh is not None and not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a torch.distributed DeviceMesh (dist.mesh.make_mesh), not {type(mesh).__name__}")
+    # Under a mesh every rank computes everything and rank 0 alone writes files.
+    writer = mesh is None or dist.get_rank() == 0
     # Full float32 everywhere: the geometry needs it (ransac module docstring),
     # and reduced precision in the pyramid flickers detections. The reference
     # reads cfg.matmul_precision here and pins float32 when use_ba; the port's
@@ -260,12 +270,13 @@ def run_sequence(
     deferred = not (progress is not None or metrics_path is not None or checkpointing)
     # The refined path steps frame by frame: keyframe submission needs
     # state.prev at exact keyframe boundaries.
-    group = cfg.fused_group if deferred and not refined else 1
+    # A mesh steps frame by frame too: its data axis shards ONE stereo pair.
+    group = cfg.fused_group if deferred and not refined and mesh is None else 1
 
     def run_group(state, lmap, dev_frames):
         query = None
         if len(dev_frames) == 2:
-            r = vo_step(state, dev_frames[0], dev_frames[1], calib, cfg, return_feats=use_loop_closure)
+            r = vo_step(state, dev_frames[0], dev_frames[1], calib, cfg, return_feats=use_loop_closure, mesh=mesh)
             state, outs = r[0], [r[1]]
             query = r[2] if use_loop_closure else None
         else:
@@ -298,7 +309,8 @@ def run_sequence(
 
     if warmup:
         # Throwaway state and map: first-use costs (kernel build, library
-        # handles, allocator growth) land here, outside the timed loop.
+        # handles, allocator growth, under a mesh the first collectives of
+        # every rank) land here, outside the timed loop.
         l0, r0 = (to_device(im, device) for im in seq.frame(0))
         w_map = lm_mod.init_map(cfg.landmarks, device) if insert_landmarks else None
         if group > 1:
@@ -314,15 +326,17 @@ def run_sequence(
 
         # Constructed before the timed loop: its solver and verification
         # warm-ups run here.
-        refiner = RefinerWorker(seq.calib, cfg, use_ba=use_ba, use_loop_closure=use_loop_closure, device=device)
+        refiner = RefinerWorker(seq.calib, cfg, use_ba=use_ba, use_loop_closure=use_loop_closure, device=device, mesh=mesh)
         kfs = _Keyframes(refiner, cfg, device, use_ba)
         if resumed_refiner_state is not None:
             # Bit-exact resume of refined runs: ledgers, archive, loop edges,
             # in-flight rounds, associator rings.
             kfs.restore_state(resumed_refiner_state)
 
-    mlog = MetricsLog(metrics_path) if metrics_path else None
+    mlog = MetricsLog(metrics_path) if metrics_path and writer else None
     gt_poses = getattr(seq, "gt_poses", None)
+    if not writer:
+        viz_every = 0
     if viz_every and viz_dir:
         os.makedirs(viz_dir, exist_ok=True)
 
@@ -371,12 +385,16 @@ def run_sequence(
                 frame_ms=round(1000.0 * (time.perf_counter() - t_frame), 2),
             )
         if checkpointing and (i + 1) % checkpoint_every == 0:
-            rows = hist.stacked()
-            ckpt_mod.save(
-                checkpoint_path, state, lmap, rows["pose_c2w"], rows["rel_pose"], i + 1,
-                stats=(rows["n_inliers"], rows["n_tracks"], rows["pose_ok"]),
-                refiner_state=kfs.checkpoint_state() if kfs is not None else None,
-            )
+            # Every rank drains its worker here (the drain runs the staged window solves,
+            # whose collectives need every rank's worker); the writer alone saves.
+            refiner_state = kfs.checkpoint_state() if kfs is not None else None
+            if writer:
+                rows = hist.stacked()
+                ckpt_mod.save(
+                    checkpoint_path, state, lmap, rows["pose_c2w"], rows["rel_pose"], i + 1,
+                    stats=(rows["n_inliers"], rows["n_tracks"], rows["pose_ok"]),
+                    refiner_state=refiner_state,
+                )
 
     t0 = time.perf_counter()
     i = start_frame

@@ -96,7 +96,12 @@ def refine_pose(R0, t0, px2d, pts3d, weights, calib: StereoCalib, iters: int, hu
 
 
 def best_hypothesis(px2d, pts3d, mask, calib: StereoCalib, cfg: RansacConfig, triples: torch.Tensor):
-    """P3P on every [H, 3] sampled triple + MSAC scoring; returns (R_w2c, t_w2c, msac_score, any_valid)."""
+    """P3P on every [H, 3] sampled triple + MSAC scoring; returns (R_w2c, t_w2c, msac_score, any_valid).
+
+    The batch is whatever ``triples`` holds (the reference's ``n_hypotheses=``):
+    dist.ransac_sharded hands each rank its rows of the replicated draw and
+    reduces the local winners with one all-gather and an argmin.
+    """
     bear = _bearings(px2d, calib)
     sols = p3p_grunert(take(bear, triples), take(pts3d, triples))  # [H, 4, ...]
     R_all = sols.R_w2c.reshape(-1, 3, 3)
@@ -111,6 +116,12 @@ def best_hypothesis(px2d, pts3d, mask, calib: StereoCalib, cfg: RansacConfig, tr
     msac = torch.where(valid_h, msac, math.inf)
     best = torch.argmin(msac).reshape(1)
     return take(R_all, best)[0], take(t_all, best)[0], take(msac, best)[0], valid_h.any()
+
+
+def finalize_pose(R_best, t_best, any_valid, px2d, pts3d, mask, calib: StereoCalib, cfg: RansacConfig) -> PoseEstimate:
+    """Refine the winning hypothesis on its consensus set and package the result (replicated
+    on every rank of a mesh: dist.ransac_sharded)."""
+    return _finalize_f32(R_best, t_best, any_valid, px2d, pts3d, mask, calib, cfg)
 
 
 def _finalize_f32(R_best, t_best, any_valid, px2d, pts3d, mask, calib: StereoCalib, cfg: RansacConfig) -> PoseEstimate:
