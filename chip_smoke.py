@@ -102,8 +102,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      dies or hangs fails the phase with its stderr. The ms per frame printed
      beside the single-process run's are the overhead of the integration on one
      shared card, not scaling.
+ 13. the benchmark surface, in process (so the launch counters see it):
+     ``vo_tpu_torch.bench.main(["--repeats", "3", "--sustained-frames", "0",
+     "--stages"])`` renders phase 4's feed anew and must print one JSON line with
+     every key of the port's bench line and a second with the four-stage split;
+     fails unless ATE <= 0.05 m and within 1e-6 m of phase 4's run (the same
+     feed, config and precision), every stage time is finite, every stage
+     launched on the card, and the bench launched K1 and K2. Then
+     ``tools/longrun_torch.run_matrix`` over the first 40 frames of the phase-5
+     feed: the four configurations (vo, vo_lc, vo_ba, vo_ba_lc) with finite
+     metrics, and vo_ba and vo_ba_lc with the same keyframe count, 7, which no
+     draw changes. The phase adds about a minute (its own render of 30 frames
+     included) and prints the seconds of both halves;
 The line before the last is a JSON summary of the kernels: ``launches`` summed
-over the counted runs of phases 4, 5, 7, 8, 9 and rank 0 of phase 12 (``launches_by_path`` has each;
+over the counted runs of phases 4, 5, 7, 8, 9, rank 0 of phase 12 and 13 (``launches_by_path`` has each;
 the counters are reset just before each path and read just after), ``max_abs_err`` the largest of the three batches' (``max_abs_err_by_batch`` has
 each), ``ms`` the one-launch detection call of 4 images with cold inputs, ``octave0_ms``, ``per_octave_launches_ms`` and
 ``copy_same_bytes_ms`` timed the same way, ``back_to_back_ms``, ``plain_ms``
@@ -114,8 +126,10 @@ computes either function. The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib.util
+import io
 import json
 import os
 import struct
@@ -172,6 +186,14 @@ MESH_BA_FRAMES = 60  # phase 12: the first frames of the phase-5 feed, enough to
 MESH_TIMEOUT_S = 300.0  # phase 12: a launched world still running after this long is killed
 SUBPROCESS_TIMEOUT_S = 400
 METRICS_KEYS = {"frame", "n_tracks", "n_inliers", "inlier_ratio", "pose_ok", "mean_reproj_err", "frame_ms"}
+BENCH_KEYS = {  # phase 13: the port's bench line (vo_tpu_torch/bench.py)
+    "metric", "value", "unit", "vs_realtime", "sustained_fps", "sustained_frames", "ate_rmse_m", "n_frames",
+    "per_frame_ms", "device", "device_kind", "per_frame_ms_runs", "per_frame_ms_min", "per_frame_ms_max",
+    "sustained_ate_rmse_m", "pose_ok_frac", "matmul_precision", "power_limit_w",
+}
+BENCH_STAGES = ("detect_describe_x2", "stereo_match", "temporal_track", "triangulate_ransac")
+BENCH_ATE_TOL_M = 1e-6  # phase 13: the bench's run against phase 4's
+LONGRUN_FRAMES = 40  # phase 13: the first frames of the phase-5 feed
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 KERNELS = {
@@ -994,6 +1016,51 @@ def shared_card_mesh(feed, feed5, cfg: PipelineConfig, device, single: runner.Ru
         raise AssertionError("the meshed BA run does not have the single-process run's keyframes, or no solve was accepted")
 
 
+def bench_surface(feed5, cfg: PipelineConfig, device, ate4: float, launches_by_path: dict) -> None:
+    """Phase 13: the port's bench and long-run matrix, in process."""
+    from vo_tpu_torch import bench
+
+    t = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = counted(launches_by_path, "bench", lambda: bench.main(["--repeats", "3", "--sustained-frames", "0", "--stages"]))
+    lines = out.getvalue().strip().splitlines()
+    if rc != 0 or len(lines) != 2:
+        raise AssertionError(f"bench.main returned {rc} and printed {len(lines)} lines:\n{out.getvalue()[-4000:]}")
+    line, stages = json.loads(lines[0]), json.loads(lines[1])["stage_breakdown"]
+    t_bench = time.perf_counter() - t
+    la = launches_by_path["bench"]
+    print(f"[13] bench.main --repeats 3 --sustained-frames 0 --stages ({t_bench:.1f} s), launches {la}:\n{lines[0]}\n{lines[1]}")
+    if not BENCH_KEYS <= set(line):
+        raise AssertionError(f"the bench line lacks {sorted(BENCH_KEYS - set(line))}")
+    if not (line["ate_rmse_m"] <= ATE_MAX_M and abs(line["ate_rmse_m"] - ate4) <= BENCH_ATE_TOL_M):
+        raise AssertionError(f"bench ATE {line['ate_rmse_m']} m against phase 4's {ate4} m")
+    for st in BENCH_STAGES:
+        vals = [stages[f"{st}_{k}"] for k in ("ms", "device_ms", "busy_ms")]
+        if not (all(v is not None and np.isfinite(v) for v in vals) and stages[f"{st}_launches"] > 0):
+            raise AssertionError(f"stage {st}: {[(k, v) for k, v in stages.items() if k.startswith(st)]}")
+    if min(la[k] for k in KERNELS) <= 0:
+        raise AssertionError(f"the bench did not launch both kernels: {la}")
+
+    t = time.perf_counter()
+    spec = importlib.util.spec_from_file_location("longrun_torch", os.path.join(REPO, "tools", "longrun_torch.py"))
+    longrun = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(longrun)
+    poses = feed5.gt_poses[:LONGRUN_FRAMES]
+    payload = counted(launches_by_path, "longrun", lambda: longrun.run_matrix(feed5, poses, cfg, device))
+    c = payload["configs"]
+    print(f"     longrun_torch.run_matrix over the first {LONGRUN_FRAMES} frames of the phase-5 feed ({time.perf_counter() - t:.1f} s), "
+          f"launches {launches_by_path['longrun']}")
+    if set(c) != {"vo", "vo_lc", "vo_ba", "vo_ba_lc"}:
+        raise AssertionError(f"run_matrix ran {sorted(c)}")
+    for name, row in c.items():
+        if not all(np.isfinite(row[k]) for k in ("ate_rmse_m", "ate_max_m", "xz_mean_m", "xz_max_m", "per_frame_ms")):
+            raise AssertionError(f"{name}: {row}")
+    want_kf = (LONGRUN_FRAMES - 1) // cfg.ba.keyframe_every
+    if not c["vo_ba"]["n_keyframes"] == c["vo_ba_lc"]["n_keyframes"] == want_kf:
+        raise AssertionError(f"keyframes vo_ba {c['vo_ba']['n_keyframes']}, vo_ba_lc {c['vo_ba_lc']['n_keyframes']}, expected {want_kf}")
+
+
 def main() -> int:
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1063,6 +1130,7 @@ def main() -> int:
         shell_surface(feed, cfg, device, tmp, max(run_to_run, found["run_to_run"]))
         nccl_one_rank(feed, cfg, device, tmp)
         shared_card_mesh(feed, feed5, cfg, device, res, np.asarray(seq.gt_poses), tmp, launches_by_path)
+    bench_surface(feed5, cfg, device, ate["rmse"], launches_by_path)
     launches = {k: sum(v[k] for v in launches_by_path.values()) for k in KERNELS}
 
     summary = [

@@ -1,6 +1,6 @@
 """The port's command line (python -m vo_tpu_torch) in process: the reference's flags, the
-card unless --cpu, ``--mesh`` over launched ranks (gloo with --cpu), and clear exits for what is
-malformed or not ported (bench)."""
+card unless --cpu, ``--mesh`` over launched ranks (gloo with --cpu), ``--precision``, and clear
+exits for what is malformed."""
 import argparse
 import dataclasses
 import json
@@ -118,7 +118,7 @@ def test_missing_data_dir_exits_2(tmp_path, capsys):
 
 @pytest.mark.parametrize(
     "argv,message",
-    [(["run", "--synthetic", "--cpu", "--mesh", "2"], "--mesh expects DATA,MODEL"), (["bench"], "no benchmark yet")],
+    [(["run", "--synthetic", "--cpu", "--mesh", "2"], "--mesh expects DATA,MODEL")],
 )
 def test_unported_surfaces_exit_2(argv, message, capsys):
     assert p_main.main(argv) == 2
@@ -136,11 +136,39 @@ def test_run_without_cpu_needs_a_card(monkeypatch, tmp_path, capsys):
     assert not out.exists()
 
 
-def test_precision_default_is_accepted_and_explained(tmp_path, capsys):
-    rc = p_main.main(["run", "--synthetic", "--frames", "2", "--cpu", "--precision", "default", "--no-view-3d",
-                      "--out", str(tmp_path / "o"), *SMALL])
-    assert rc == 0
-    assert "float32 throughout" in capsys.readouterr().out
+def test_precision_default_is_accepted_and_explained(tmp_path, capsys, monkeypatch):
+    """--precision reaches the run: the plain step runs at its mapping (utils.precision:
+    "default" is float32 on the card, and follows the mapping where a tool sets it to TF32),
+    --ba pins float32, and the caller's flags are back afterwards."""
+    from vo_tpu_torch.odometry import runner
+    from vo_tpu_torch.utils import precision
+
+    seen = []
+    body = runner._run_sequence
+
+    def spy(seq, cfg, **kw):
+        seen.append((cfg.matmul_precision, torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
+        return body(seq, cfg, **kw)
+
+    monkeypatch.setattr(runner, "_run_sequence", spy)
+    before = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    for tf32 in (False, True):
+        monkeypatch.setattr(precision, "DEFAULT_ALLOWS_TF32", tf32)
+        for extra in ([], ["--ba"]):
+            rc = p_main.main(["run", "--synthetic", "--frames", "2", "--cpu", "--precision", "default", "--no-view-3d",
+                              "--out", str(tmp_path / "o"), *SMALL, *extra])
+            assert rc == 0
+    assert seen == [("default", False, False)] * 2 + [("default", True, True), ("default", False, False)]
+    assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == before
+    assert "note:" not in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("cmd", ["run", "bench"])
+def test_invalid_precision_exits_2(cmd, capsys):
+    with pytest.raises(SystemExit) as e:
+        p_main.main([cmd, "--synthetic", "--cpu", "--precision", "bfloat16"] if cmd == "run" else [cmd, "--cpu", "--precision", "tf32"])
+    assert e.value.code == 2
+    assert "--precision" in capsys.readouterr().err
 
 
 def test_mesh_needs_its_devices(monkeypatch, capsys):

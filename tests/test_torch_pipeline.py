@@ -182,13 +182,13 @@ def test_runner_takes_every_reference_option():
 
 
 def test_port_never_imports_jax():
-    """Importing EVERY vo_tpu_torch module (the command line's ``__main__`` and the figures
-    included), chip_smoke and the profiling tool leaves jax and every module of vo_tpu out of
-    sys.modules."""
+    """Importing EVERY vo_tpu_torch module (the command line's ``__main__``, the bench and the
+    figures included), chip_smoke, bench_torch and the port's tools leaves jax and every module
+    of vo_tpu out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "sys.path.insert(0, 'tools')\n"
-        "import vo_tpu_torch, chip_smoke, profile_torch_step\n"
+        "import vo_tpu_torch, chip_smoke, bench_torch, profile_torch_step, longrun_torch, precision_torch\n"
         "for m in pkgutil.walk_packages(vo_tpu_torch.__path__, 'vo_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
@@ -196,7 +196,7 @@ def test_port_never_imports_jax():
         "assert not ref, ref\n"
         "for m in ('__main__', 'viz.figures', 'odometry.checkpoint', 'io.undistort', 'io.native_loader', 'utils.debug', 'utils.profiling',\n"
         "          'dist.mesh', 'dist.ransac_sharded', 'dist.ba_sharded', 'dist.pose_graph_sharded', 'dist.frontend_batch',\n"
-        "          'dist.multihost_smoke', 'dist.scaling'):\n"
+        "          'dist.multihost_smoke', 'dist.scaling', 'bench', 'utils.precision'):\n"
         "    assert 'vo_tpu_torch.' + m in sys.modules, m\n"
         "print('ok', len([k for k in sys.modules if k.startswith('vo_tpu_torch')]))\n"
     )

@@ -15,7 +15,8 @@ Lowe-exact SIFT oracle path (``SIFTConfig(fast_descriptor=False)``),
 undistortion, the KITTI image feed, the dev utilities, and the device mesh on
 ``torch.distributed`` (``dist/``, ``run_sequence(mesh=)``, ``--mesh``: one
 process per rank, NCCL with a card per rank, gloo on the CPU or on a shared
-card). Not ported yet: a benchmark (``bench``). The package imports ``torch``, never ``jax`` and nothing of
+card), and the benchmark surface (``bench``: ``python -m vo_tpu_torch bench``,
+``--stages``; the scoped matmul precision of ``utils.precision``). The package imports ``torch``, never ``jax`` and nothing of
 ``vo_tpu``: it keeps its own copies of the configuration, the trajectory
 metrics, the profiling helpers and the figures. Its entry points run on the
 CUDA card unless the caller passes ``device="cpu"``
@@ -31,7 +32,7 @@ Subpackages:
   dist      device mesh and rank launcher, sharded RANSAC / window BA / pose graph / detection, smoke and harness
   slam      loop closure
   eval      trajectory metrics
-  utils     fixed-capacity padding/masking, non-waiting host/device copies, the default device,
+  utils     fixed-capacity padding/masking, non-waiting host/device copies, the default device, scoped matmul precision,
             profiling (timers, metrics JSONL, torch.profiler trace), debugging (non-finite trap, launch counts)
   viz       the reference's four figures (matplotlib, imported only where drawn)
 """

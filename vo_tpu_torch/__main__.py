@@ -8,6 +8,7 @@ figure dumps. ``run`` uses the current CUDA device unless ``--cpu`` is given.
   python -m vo_tpu_torch run --data kitti/00 --out out/ --checkpoint-every 500 [--resume]
   python -m vo_tpu_torch eval --trajectory out/trajectory.npz --poses kitti/poses/00.txt
   python -m vo_tpu_torch run --synthetic --frames 50 --out /tmp/vo --cpu --mesh 1,2
+  python -m vo_tpu_torch bench [--stages] [--repeats 5] [--precision float32] [--cpu]
 
 ``--mesh DATA,MODEL`` runs the same command on DATA * MODEL ranks, one process
 each, which this process launches (dist.mesh.launch): on the card that needs
@@ -15,8 +16,8 @@ DATA * MODEL cards (NCCL), with ``--cpu`` it runs on gloo. Rank 0 prints and
 writes the results. Where an outer launcher has set ``RANK`` and
 ``WORLD_SIZE`` the process joins that world instead of launching one.
 
-Not ported yet: ``bench`` (the port has no benchmark); it exits with code 2 and
-says so.
+``bench`` hands the rest of the command line to ``vo_tpu_torch.bench.main``
+(the reference's ``bench`` runs the repo's root ``bench.py``).
 """
 from __future__ import annotations
 
@@ -86,7 +87,7 @@ def _add_run(sub):
         "--precision",
         choices=("default", "float32"),
         default=None,
-        help="accepted for the reference's command lines; the port's step is float32 either way",
+        help="matmul precision of the plain step (utils.precision: default is float32 on the H100; --ba / --loop-closure pin float32)",
     )
     return p
 
@@ -237,8 +238,6 @@ def _run(args, device, mesh) -> int:
         cfg = dataclasses.replace(cfg, mesh=MeshConfig(data=shape["data"], model=shape["model"]))
         platform = "gpu" if device.type == "cuda" else "cpu"
         say(f"mesh: {shape} over {dist.get_world_size()} {platform} devices")
-    if args.precision == "default":
-        say("note: --precision default: the port's step is float32 throughout; the option changes nothing")
     os.makedirs(args.out, exist_ok=True)
 
     def progress(i, info):
@@ -297,9 +296,10 @@ def cmd_eval(args) -> int:
     return 0
 
 
-def cmd_bench(args) -> int:
-    print("error: bench: vo_tpu_torch has no benchmark yet", file=sys.stderr)
-    return 2
+def cmd_bench(argv) -> int:
+    from . import bench
+
+    return bench.main(argv)
 
 
 def main(argv=None) -> int:
@@ -309,9 +309,13 @@ def main(argv=None) -> int:
     pe = sub.add_parser("eval", help="evaluate a saved trajectory against GT poses")
     pe.add_argument("--trajectory", required=True)
     pe.add_argument("--poses", required=True)
-    sub.add_parser("bench", help="not ported yet: the port has no benchmark")
-    args = ap.parse_args(argv)
-    return {"run": cmd_run, "eval": cmd_eval, "bench": cmd_bench}[args.cmd](args)
+    sub.add_parser("bench", help="the benchmark: one JSON line (vo_tpu_torch.bench; its flags follow)", add_help=False)
+    args, rest = ap.parse_known_args(argv)
+    if args.cmd == "bench":
+        return cmd_bench(rest)
+    if rest:
+        ap.error(f"unrecognized arguments: {' '.join(rest)}")
+    return {"run": cmd_run, "eval": cmd_eval}[args.cmd](args)
 
 
 if __name__ == "__main__":

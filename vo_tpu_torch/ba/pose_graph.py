@@ -33,6 +33,7 @@ import torch
 
 from ..dist.mesh import all_reduce_sum_packed
 from ..geom import se3
+from ..utils.precision import matmul_precision
 
 
 class PoseGraph(NamedTuple):
@@ -130,6 +131,7 @@ def gn_update(T, lam, H, b, deg) -> torch.Tensor:
     return torch.einsum("kij,kjl->kil", se3.exp(dxi), T)
 
 
+@matmul_precision("float32")
 def optimize(g: PoseGraph, iters: int = 10, damping: float = 1e-6, group=None) -> PoseGraphResult:
     """Fixed-iteration damped Gauss-Newton on the graph's device; first keyframe anchored (gauge).
 

@@ -37,6 +37,7 @@ from ..config import BAConfig
 from ..dist.mesh import all_reduce_sum_packed
 from ..geom import se3
 from ..geom.camera import StereoCalib
+from ..utils.precision import matmul_precision
 
 
 class BAProblem(NamedTuple):
@@ -216,6 +217,7 @@ def _cost_only(T_w2c, X, prob, calib, cfg, group=None):
     return cost if group is None else all_reduce_sum_packed([cost], group)[0]
 
 
+@matmul_precision("float32")
 def solve_window(prob: BAProblem, calib: StereoCalib, cfg: BAConfig, group=None) -> BAResult:
     """LM-damped Gauss-Newton over the window; every value stays on the problem's device.
 

@@ -14,9 +14,11 @@ import torch
 from ..ba.window import BAProblem, BAResult, solve_window
 from ..config import BAConfig
 from ..geom.camera import StereoCalib
+from ..utils.precision import matmul_precision
 from .mesh import all_gather, axis_size, shard_rows
 
 
+@matmul_precision("float32")
 def solve_window_sharded(
     prob: BAProblem,
     calib: StereoCalib,

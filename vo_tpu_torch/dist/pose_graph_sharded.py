@@ -10,9 +10,11 @@ keeps the poses bit-identical across ranks).
 from __future__ import annotations
 
 from ..ba import pose_graph as pg
+from ..utils.precision import matmul_precision
 from .mesh import axis_size, shard_rows
 
 
+@matmul_precision("float32")
 def optimize_sharded(
     g: pg.PoseGraph,
     mesh,

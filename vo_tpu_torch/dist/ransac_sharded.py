@@ -25,9 +25,11 @@ from ..config import RansacConfig
 from ..geom.camera import StereoCalib
 from ..pose.ransac import PoseEstimate, _sample_triples, best_hypothesis, finalize_pose
 from ..utils.padding import take
+from ..utils.precision import matmul_precision
 from .mesh import all_gather_packed, axis_size
 
 
+@matmul_precision("float32")
 def estimate_world_pose_sharded(
     px2d: torch.Tensor,
     pts3d: torch.Tensor,

@@ -13,9 +13,14 @@ matched on the device against every keyframe of the window (the runner's
 descriptor ring). The frame loop's only host waits are the refiner's
 ``throttle`` and the final synchronise. Corrections live in the worker's
 frame, and the full trajectory is re-anchored onto the corrected keyframes
-at the end (odometry.correction). The port's step is float32 end to end, so
-unlike the reference on a TPU (which pins float32 only when BA is on), its
-refined and plain paths see the same detection stream.
+at the end (odometry.correction).
+
+Precision (utils.precision): the plain path runs at ``cfg.matmul_precision``,
+the refined path pinned to float32 for the whole run, as the reference pins
+it for ``use_ba``. The port pins ``use_loop_closure`` alone too: the TF32
+flags are global to the process, so the worker's solvers could not pin
+themselves without flipping the flags under the frame loop's step. The
+caller's flags are restored when the run returns or raises.
 
 Any per-frame host consumer (``progress``, ``metrics_path``, periodic
 checkpoints) takes the run off the deferred path: one frame per step, and the
@@ -49,6 +54,7 @@ from ..config import PipelineConfig
 from ..frontend.match import match
 from ..utils.device import resolve
 from ..utils.host_copy import HostCopy, upload
+from ..utils.precision import allows_tf32, matmul_precision
 from ..utils.profiling import MetricsLog, pretty_frame
 from . import landmarks as lm_mod
 from . import checkpoint as ckpt_mod
@@ -151,6 +157,7 @@ class _Keyframes:
         self.refiner.throttle(max_lag=2)
         self.wait_s += time.perf_counter() - t
 
+    @matmul_precision("float32")
     def _associate(self, desc: torch.Tensor, mask: torch.Tensor):
         """Match the new keyframe against every ring slot, then take a slot for it -> (slot, a, b, ok)."""
         Cw = self.cfg.max_tracks
@@ -245,18 +252,29 @@ def run_sequence(
     (VO.m:168-204, 261-277; needs matplotlib). ``verbose`` is accepted for the
     reference's call sites and unused, as there. ``mesh`` routes the step through
     the dist layer (module docstring); every rank of the mesh makes this call.
+    The run is at ``cfg.matmul_precision``, or float32 on the refined path
+    (module docstring); an unknown name raises ``ValueError``.
     """
+    allows_tf32(cfg.matmul_precision)  # an unknown name raises on the refined path too
+    with matmul_precision("float32" if use_ba or use_loop_closure else cfg.matmul_precision):
+        return _run_sequence(
+            seq, cfg, n_frames=n_frames, seed=seed, insert_landmarks=insert_landmarks, progress=progress,
+            warmup=warmup, checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every, resume=resume,
+            metrics_path=metrics_path, use_ba=use_ba, use_loop_closure=use_loop_closure, viz_every=viz_every,
+            viz_dir=viz_dir, mesh=mesh, device=device,
+        )
+
+
+def _run_sequence(
+    seq, cfg, *, n_frames, seed, insert_landmarks, progress, warmup, checkpoint_path, checkpoint_every, resume,
+    metrics_path, use_ba, use_loop_closure, viz_every, viz_dir, mesh, device,
+) -> RunResult:
+    """run_sequence's body, inside its precision block."""
     device = resolve(device)
     if mesh is not None and not isinstance(mesh, DeviceMesh):
         raise TypeError(f"mesh must be a torch.distributed DeviceMesh (dist.mesh.make_mesh), not {type(mesh).__name__}")
     # Under a mesh every rank computes everything and rank 0 alone writes files.
     writer = mesh is None or dist.get_rank() == 0
-    # Full float32 everywhere: the geometry needs it (ransac module docstring),
-    # and reduced precision in the pyramid flickers detections. The reference
-    # reads cfg.matmul_precision here and pins float32 when use_ba; the port's
-    # step has one precision, so that option has no counterpart and is not read.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     calib = seq.calib.to(device)
     if insert_landmarks is None:
         insert_landmarks = cfg.view_3d

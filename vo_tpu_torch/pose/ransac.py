@@ -9,7 +9,7 @@ the 3D points' frame (camera-to-world), the convention chained at VO.m:130.
 The samples come from a ``torch.Generator`` and cannot match ``jax.random``;
 ``best_hypothesis`` and ``estimate_world_pose`` therefore also take the
 sampled triples as an input, so tests can inject the reference's own draws.
-All geometry runs in full float32 (the runner turns TF32 off): world
+All geometry runs in full float32 (both entry points pin it, utils.precision): world
 coordinates of tens of meters lose centimeters in reduced-precision products.
 Nothing here reads a value back to the host.
 """
@@ -24,6 +24,7 @@ from ..config import RansacConfig
 from ..geom import se3
 from ..geom.camera import StereoCalib
 from ..utils.padding import take
+from ..utils.precision import matmul_precision
 from .p3p import p3p_grunert
 
 
@@ -118,6 +119,7 @@ def best_hypothesis(px2d, pts3d, mask, calib: StereoCalib, cfg: RansacConfig, tr
     return take(R_all, best)[0], take(t_all, best)[0], take(msac, best)[0], valid_h.any()
 
 
+@matmul_precision("float32")
 def finalize_pose(R_best, t_best, any_valid, px2d, pts3d, mask, calib: StereoCalib, cfg: RansacConfig) -> PoseEstimate:
     """Refine the winning hypothesis on its consensus set and package the result (replicated
     on every rank of a mesh: dist.ransac_sharded)."""
@@ -150,6 +152,7 @@ def _finalize_f32(R_best, t_best, any_valid, px2d, pts3d, mask, calib: StereoCal
     )
 
 
+@matmul_precision("float32")
 def estimate_world_pose(
     px2d: torch.Tensor,  # [N, 2] current-frame LEFT pixels (VO.m:124)
     pts3d: torch.Tensor,  # [N, 3] 3D points in the previous camera's frame (VO.m:125)

@@ -40,6 +40,7 @@ from ..geom.triangulate import triangulate_rectified
 from ..pose.ransac import estimate_world_pose
 from ..utils.device import resolve
 from ..utils.host_copy import HostCopy, upload
+from ..utils.precision import matmul_precision
 
 logger = logging.getLogger(__name__)
 
@@ -118,6 +119,7 @@ class LoopCloser:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(17)
 
+    @matmul_precision("float32")
     def _verify(self, devs, cur_lpx, cur_desc, cur_mask, triples=None):
         """match -> triangulate -> RANSAC-P3P per candidate; returns stacked (ok [B], n_inliers [B],
         poses [B,4,4], n_matches [B]) on the device. ``triples[b]`` [H, 3] replaces candidate b's draw."""
