@@ -1,13 +1,14 @@
 """The port's benchmark (vo_tpu_torch/bench.py, ``python -m vo_tpu_torch bench``) on the CPU: the
 rendered-frame cache against the reference's ``bench.preload_cached`` (the same bytes, the same
-file both ways, invalidated by other poses), the stage breakdown's keys, and the one JSON line.
-Feeds are small (a reduced image size and landmark count) and use seeds no other test uses: the
-reference writes its cache under /tmp by a fixed name."""
+file both ways, invalidated by other poses), the stage breakdown's keys, the profiler's launch count, and the one JSON line. Feeds are small (a
+reduced image size and landmark count). The reference writes its cache under /tmp by a fixed name;
+here each test moves that file into its own directory, so no two runs share one."""
 import importlib.util
 import json
 import os
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -39,12 +40,41 @@ REF_STAGE_KEYS = {"detect_describe_x2_ms", "stereo_match_ms", "temporal_track_ms
 
 
 @pytest.fixture(scope="module")
-def ref_bench():
+def ref_bench_module():
     """The reference's root bench.py as a module."""
     spec = importlib.util.spec_from_file_location("_reference_bench", REPO / "bench.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+class _View:
+    """A module seen with some of its attributes replaced."""
+
+    def __init__(self, mod, **over):
+        self._mod, self._over = mod, over
+
+    def __getattr__(self, name):
+        return self._over[name] if name in self._over else getattr(self._mod, name)
+
+
+@pytest.fixture()
+def ref_bench(ref_bench_module, tmp_path, monkeypatch):
+    """(the reference's bench.py, its cache directory): the cache it names under /tmp is moved into
+    the test's own directory ``ref``, as its os.path.exists, np.load and np.savez see it."""
+    ref_dir = tmp_path / "ref"
+    ref_dir.mkdir()
+
+    def moved(fn):
+        def call(path, *a, **k):
+            assert path.startswith("/tmp/"), path
+            return fn(str(ref_dir / path[len("/tmp/"):]), *a, **k)
+
+        return call
+
+    monkeypatch.setattr(ref_bench_module, "np", _View(np, load=moved(np.load), savez=moved(np.savez)))
+    monkeypatch.setattr(ref_bench_module, "os", _View(os, path=_View(os.path, exists=moved(os.path.exists))))
+    return ref_bench_module, ref_dir
 
 
 @pytest.fixture(scope="module")
@@ -56,41 +86,23 @@ def geometry():
     return p_kitti.load_stereo_calib(str(DATA / "00")), r_kitti.load_stereo_calib(str(DATA / "00")), poses
 
 
-def _tmp_cache(seed: int) -> str:
-    """The reference's cache file for the test feed with ``seed`` (it writes under /tmp only)."""
-    return f"/tmp/longrun_frames_v4_{N}_{LANDMARKS}_{seed}_{SIZE[0]}x{SIZE[1]}.npz"
-
-
-@pytest.fixture()
-def tmp_cache(request):
-    """The /tmp cache names a test uses, removed before and after it."""
-    paths = [_tmp_cache(s) for s in request.param]
-    for p in paths:
-        if os.path.exists(p):
-            os.remove(p)
-    yield request.param
-    for p in paths:
-        if os.path.exists(p):
-            os.remove(p)
-
-
 def _frames(pre) -> np.ndarray:
     return np.stack([np.stack(f) for f in pre.frames])
 
 
-@pytest.mark.parametrize("tmp_cache", [(8101,)], indirect=True)
 @pytest.mark.parametrize("extra_noise", [0.0, 0.05])
-def test_preload_cached_equals_reference(ref_bench, geometry, tmp_cache, tmp_path, extra_noise):
+def test_preload_cached_equals_reference(ref_bench, geometry, tmp_path, extra_noise):
     """The port's frames are the reference's byte for byte, with and without load-time noise. The
     reference adds ``extra_noise`` only when its cache was already there, so its second call is the
     one compared; the port adds it on a fresh render as on a reload."""
+    ref, ref_dir = ref_bench
     p_calib, r_calib, poses = geometry
-    (seed,) = tmp_cache
-    kw = dict(seed=seed, image_size=SIZE, extra_noise=extra_noise)
-    first = ref_bench.preload_cached(r_calib, poses, N, LANDMARKS, **kw)
-    want = ref_bench.preload_cached(r_calib, poses, N, LANDMARKS, **kw)
-    got = bench.preload_cached(p_calib, poses, N, LANDMARKS, cache_dir=str(tmp_path), **kw)
-    again = bench.preload_cached(p_calib, poses, N, LANDMARKS, cache_dir=str(tmp_path), **kw)
+    kw = dict(seed=8101, image_size=SIZE, extra_noise=extra_noise)
+    first = ref.preload_cached(r_calib, poses, N, LANDMARKS, **kw)
+    want = ref.preload_cached(r_calib, poses, N, LANDMARKS, **kw)
+    got = bench.preload_cached(p_calib, poses, N, LANDMARKS, cache_dir=str(tmp_path / "port"), **kw)
+    again = bench.preload_cached(p_calib, poses, N, LANDMARKS, cache_dir=str(tmp_path / "port"), **kw)
+    assert [p.name for p in ref_dir.iterdir()] == [p.name for p in (tmp_path / "port").iterdir()]
     assert _frames(got).dtype == np.uint8 and _frames(got).shape == (N, 2) + SIZE
     np.testing.assert_array_equal(_frames(got), _frames(want))
     np.testing.assert_array_equal(_frames(again), _frames(got))
@@ -125,25 +137,25 @@ def test_cache_invalidated_by_changed_poses(geometry, tmp_path):
     np.testing.assert_array_equal(np.load(path)["poses"], moved)
 
 
-@pytest.mark.parametrize("tmp_cache", [(8104, 8105)], indirect=True)
-def test_cache_written_by_one_package_is_read_by_the_other(ref_bench, geometry, tmp_cache):
+def test_cache_written_by_one_package_is_read_by_the_other(ref_bench, geometry):
     """Each package reads the other's file: a file whose left frames were zeroed afterwards comes back zeroed."""
+    ref, ref_dir = ref_bench
     p_calib, r_calib, poses = geometry
-    s_port, s_ref = tmp_cache
 
     def zero_left(seed):
-        z = dict(np.load(_tmp_cache(seed)))
-        np.savez(_tmp_cache(seed), l=np.zeros_like(z["l"]), r=z["r"], poses=z["poses"])
+        (path,) = ref_dir.glob(f"longrun_frames_v4_{N}_{LANDMARKS}_{seed}_*.npz")
+        z = dict(np.load(path))
+        np.savez(path, l=np.zeros_like(z["l"]), r=z["r"], poses=z["poses"])
         return z["r"]
 
-    bench.preload_cached(p_calib, poses, N, LANDMARKS, seed=s_port, image_size=SIZE, cache_dir="/tmp")
-    right = zero_left(s_port)
-    by_ref = _frames(ref_bench.preload_cached(r_calib, poses, N, LANDMARKS, seed=s_port, image_size=SIZE))
+    bench.preload_cached(p_calib, poses, N, LANDMARKS, seed=8104, image_size=SIZE, cache_dir=str(ref_dir))
+    right = zero_left(8104)
+    by_ref = _frames(ref.preload_cached(r_calib, poses, N, LANDMARKS, seed=8104, image_size=SIZE))
     assert not by_ref[:, 0].any() and np.array_equal(by_ref[:, 1], right)
 
-    ref_bench.preload_cached(r_calib, poses, N, LANDMARKS, seed=s_ref, image_size=SIZE)
-    right = zero_left(s_ref)
-    by_port = _frames(bench.preload_cached(p_calib, poses, N, LANDMARKS, seed=s_ref, image_size=SIZE, cache_dir="/tmp"))
+    ref.preload_cached(r_calib, poses, N, LANDMARKS, seed=8105, image_size=SIZE)
+    right = zero_left(8105)
+    by_port = _frames(bench.preload_cached(p_calib, poses, N, LANDMARKS, seed=8105, image_size=SIZE, cache_dir=str(ref_dir)))
     assert not by_port[:, 0].any() and np.array_equal(by_port[:, 1], right)
 
 
@@ -160,6 +172,59 @@ def test_stage_breakdown_keys_on_the_cpu():
     assert out["sum_ms"] == pytest.approx(sum(out[f"{s}_ms"] for s in stages))
 
 
+def _event(name, start, end, cuda=False):
+    kind = torch.autograd.DeviceType.CUDA if cuda else torch.autograd.DeviceType.CPU
+    return types.SimpleNamespace(name=name, time_range=types.SimpleNamespace(start=start, end=end), device_type=kind)
+
+
+def _session(counts):
+    """The events of one profiled session (us): four calls 100 ms apart, each a host range, its
+    device-side annotation and ``counts[k]`` launches of 5 us."""
+    evs = []
+    for k, (mark, c) in enumerate(zip(bench._MARKS, counts)):
+        t = 1e5 * k
+        evs += [_event(mark, t, t + 1e3), _event(mark, t + 10, t + 1e3, cuda=True)]
+        evs += [_event("kernel", t + 20 + 10 * j, t + 25 + 10 * j, cuda=True) for j in range(c)]
+    return evs
+
+
+@pytest.mark.parametrize(
+    "sessions,want",
+    [
+        ([(5, 7, 7, 3)], 7),  # launches lost at the session's start and end are not counted
+        ([(7, 6, 7, 7), (7, 7, 7, 7)], 7),  # the counted calls disagree: a second session
+        ([(7, 6, 7, 7)] * 3, None),  # they never agree: no count
+    ],
+    ids=["edges_lost", "second_session", "never_agree"],
+)
+def test_profile_call_counts_only_what_two_calls_agree_on(sessions, want, monkeypatch):
+    queue = [_session(c) for c in sessions]
+
+    class FakeProfile:
+        def __init__(self, activities):
+            self.evs = queue.pop(0)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return self.evs
+
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    calls = []
+    fn = lambda: calls.append(1)  # noqa: E731
+    if want is None:
+        with pytest.raises(RuntimeError, match="lost launches"):
+            bench._profile_call(fn, torch.device("cpu"))
+    else:
+        busy, launches = bench._profile_call(fn, torch.device("cpu"))
+        assert launches == want and busy == pytest.approx(want * 5e-3)
+    assert not queue and len(calls) == 4 * len(sessions)
+
+
 def test_main_prints_one_json_line(capsys):
     """Every key of the port's line, none the port has no counterpart for; the precision named is the run's."""
     argv = ["--cpu", "--frames", "2", "--sustained-frames", "0", "--repeats", "2", "--precision", "float32", *SMALL]
@@ -174,7 +239,7 @@ def test_main_prints_one_json_line(capsys):
     assert out["vs_realtime"] == pytest.approx(out["value"] / 9.6)
     assert out["sustained_fps"] is None and out["sustained_frames"] is None and out["power_limit_w"] is None
     assert np.isfinite(out["ate_rmse_m"]) and out["ate_rmse_m"] < 0.05 and out["pose_ok_frac"] == 1.0
-    assert out["matmul_precision"] == "float32" and out["allow_tf32"] is False
+    assert out["matmul_precision"] == "float32"
 
 
 def test_bench_subcommand_exits_0():

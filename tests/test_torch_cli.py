@@ -137,28 +137,25 @@ def test_run_without_cpu_needs_a_card(monkeypatch, tmp_path, capsys):
 
 
 def test_precision_default_is_accepted_and_explained(tmp_path, capsys, monkeypatch):
-    """--precision reaches the run: the plain step runs at its mapping (utils.precision:
-    "default" is float32 on the card, and follows the mapping where a tool sets it to TF32),
-    --ba pins float32, and the caller's flags are back afterwards."""
+    """--precision reaches the run: "default" runs in float32 on the card as "float32" does
+    (utils.precision), plain and with --ba, and the caller's flags are back afterwards."""
     from vo_tpu_torch.odometry import runner
-    from vo_tpu_torch.utils import precision
 
     seen = []
-    body = runner._run_sequence
+    first = runner.resolve
 
-    def spy(seq, cfg, **kw):
-        seen.append((cfg.matmul_precision, torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
-        return body(seq, cfg, **kw)
+    def spy(device):
+        seen.append((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
+        return first(device)
 
-    monkeypatch.setattr(runner, "_run_sequence", spy)
+    monkeypatch.setattr(runner, "resolve", spy)
     before = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    for tf32 in (False, True):
-        monkeypatch.setattr(precision, "DEFAULT_ALLOWS_TF32", tf32)
+    for name in ("default", "float32"):
         for extra in ([], ["--ba"]):
-            rc = p_main.main(["run", "--synthetic", "--frames", "2", "--cpu", "--precision", "default", "--no-view-3d",
+            rc = p_main.main(["run", "--synthetic", "--frames", "2", "--cpu", "--precision", name, "--no-view-3d",
                               "--out", str(tmp_path / "o"), *SMALL, *extra])
             assert rc == 0
-    assert seen == [("default", False, False)] * 2 + [("default", True, True), ("default", False, False)]
+    assert seen == [(False, False)] * 4
     assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == before
     assert "note:" not in capsys.readouterr().out
 

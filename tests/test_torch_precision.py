@@ -1,9 +1,12 @@
-"""Scoped matmul precision (vo_tpu_torch/utils/precision.py): the TF32 flags are set for the
+"""Scoped matmul precision (vo_tpu_torch/utils/precision.py): the TF32 flags are off for the
 span of a solver or a run and given back to the caller, whatever the caller had set, when it
-returns or raises; a block whose flags already hold its value writes nothing; unknown names
-raise. Each solver entry point is probed from inside: a callee it reaches first is replaced by
-a probe that records the flags and stops the call."""
+returns or raises; a block whose flags are already off writes nothing; unknown names raise.
+Each entry point is probed from inside: a callee it reaches first is replaced by a probe that
+records the flags and stops the call. tools/precision_torch.py's bare step loop is held to
+run_sequence's plain path."""
+import importlib.util
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -15,8 +18,7 @@ from vo_tpu_torch.dist import ba_sharded, pose_graph_sharded, ransac_sharded
 from vo_tpu_torch.odometry import runner
 from vo_tpu_torch.pose import ransac
 from vo_tpu_torch.slam import loop_closure
-from vo_tpu_torch.utils import precision
-from vo_tpu_torch.utils.precision import allows_tf32, matmul_precision
+from vo_tpu_torch.utils.precision import NAMES, matmul_precision
 
 # The suite runs in several worker processes at once: one thread each, or they fight for the cores.
 torch.set_num_threads(1)
@@ -92,52 +94,32 @@ def test_solver_pins_float32_and_restores_the_callers_flags(name, caller, monkey
     assert _flags() == caller
 
 
-def _stub_body(seen: list, raise_: bool = False):
-    """A stand-in for run_sequence's body: records the flags the run would step at."""
-
-    def body(seq, cfg, **kw):
-        seen.append(_flags())
-        if raise_:
-            raise _Stop
-        return "result"
-
-    return body
-
-
 @pytest.mark.parametrize(
     "precision_name,use_ba,use_loop_closure",
     [("float32", False, False), ("default", False, False), ("highest", False, False),
      ("default", True, False), ("default", False, True), ("default", True, True)],
 )
-@pytest.mark.parametrize("raises", [False, True], ids=["returns", "raises"])
-@pytest.mark.parametrize("default_tf32", [False, True], ids=["default32", "defaultTF32"])
-def test_run_sequence_scopes_its_precision(precision_name, use_ba, use_loop_closure, raises, default_tf32, caller, monkeypatch):
-    """The plain path steps at cfg.matmul_precision (under either mapping of "default"), any
-    refined run (the worker is a second thread) pinned to float32; the caller's flags come back
-    whether the run returns or raises."""
-    monkeypatch.setattr(precision, "DEFAULT_ALLOWS_TF32", default_tf32)
+def test_run_sequence_scopes_its_precision(precision_name, use_ba, use_loop_closure, caller, monkeypatch):
+    """The run's body (probed at its first callee) steps with both flags off, at every name and on
+    the refined path (the worker is a second thread); the caller's flags come back when it raises."""
     seen = []
-    monkeypatch.setattr(runner, "_run_sequence", _stub_body(seen, raises))
+    monkeypatch.setattr(runner, "resolve", _probe(seen))
     cfg = PipelineConfig(matmul_precision=precision_name)
-    call = lambda: runner.run_sequence(None, cfg, use_ba=use_ba, use_loop_closure=use_loop_closure, device="cpu")  # noqa: E731
-    if raises:
-        with pytest.raises(_Stop):
-            call()
-    else:
-        assert call() == "result"
-    refined = use_ba or use_loop_closure
-    tf32 = False if refined else allows_tf32(precision_name)
-    assert seen == [(tf32, tf32)]
+    with pytest.raises(_Stop):
+        runner.run_sequence(None, cfg, use_ba=use_ba, use_loop_closure=use_loop_closure, device="cpu")
+    assert seen == [PINNED]
     assert _flags() == caller
 
 
-def test_real_run_gives_the_flags_back(caller):
+@pytest.mark.parametrize("precision_name", NAMES)
+def test_real_run_gives_the_flags_back(precision_name, caller):
     """A whole (tiny) plain run on the CPU, not a stand-in: the flags after it are the caller's."""
     from vo_tpu_torch.config import SIFTConfig
     from vo_tpu_torch.io import synthetic
 
     seq = synthetic.kitti_synthetic_sequence(n_frames=2, n_landmarks=400, seed=8201, image_size=(60, 200))
-    cfg = PipelineConfig(sift=SIFTConfig(max_keypoints=64), ransac=RansacConfig(n_hypotheses=16), max_tracks=64)
+    cfg = PipelineConfig(sift=SIFTConfig(max_keypoints=64), ransac=RansacConfig(n_hypotheses=16), max_tracks=64,
+                         matmul_precision=precision_name)
     res = runner.run_sequence(seq, cfg, device="cpu", warmup=False)
     assert res.poses.shape == (1, 4, 4) and np.isfinite(res.poses).all()
     assert _flags() == caller
@@ -179,27 +161,44 @@ def test_block_restores_on_exception():
     assert _flags() == before
 
 
-def test_names_and_mapping(monkeypatch):
-    """The reference's names. "default" maps to float32 on the card (measured: utils.precision);
-    the mapping is read at every call, so the measuring tool can set it to TF32."""
-    assert allows_tf32("float32") is False and allows_tf32("highest") is False
-    assert precision.DEFAULT_ALLOWS_TF32 is False and allows_tf32("default") is False
-    monkeypatch.setattr(precision, "DEFAULT_ALLOWS_TF32", True)
-    assert allows_tf32("default") is True and allows_tf32("float32") is False
-    with matmul_precision("default"):
-        assert _flags() == (True, True)
+@pytest.mark.parametrize("name", NAMES)
+def test_every_name_is_float32(name, caller):
+    """The reference's names, "default" included, all run in float32 on the card (measured:
+    PERF.md section 6); the caller's flags come back after the block."""
+    with matmul_precision(name):
+        assert _flags() == PINNED
+    assert _flags() == caller
 
 
 @pytest.mark.parametrize("bad", ["bfloat16", "tf32", "", "Float32"])
 def test_unknown_precision_raises(bad):
-    with pytest.raises(ValueError, match="unknown matmul precision"):
-        allows_tf32(bad)
     with pytest.raises(ValueError, match="unknown matmul precision"):
         with matmul_precision(bad):
             pass
     for refined in (False, True):
         with pytest.raises(ValueError, match="unknown matmul precision"):
             runner.run_sequence(None, PipelineConfig(matmul_precision=bad), use_ba=refined, device="cpu")
+
+
+def test_tool_bare_loop_is_run_sequences_plain_path():
+    """tools/precision_torch.py times TF32 on a bare copy of the plain deferred loop (run_sequence
+    pins its own precision): at float32 its poses are run_sequence's, bit for bit, over an odd
+    number of frames (2-frame groups and a single-frame tail), landmarks inserted."""
+    from vo_tpu_torch.config import SIFTConfig
+    from vo_tpu_torch.io import synthetic
+
+    spec = importlib.util.spec_from_file_location("_precision_torch", Path(__file__).resolve().parent.parent / "tools" / "precision_torch.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    seq = synthetic.kitti_synthetic_sequence(n_frames=5, n_landmarks=1500, seed=8202, image_size=(94, 310))
+    cfg = PipelineConfig(sift=SIFTConfig(max_keypoints=128), ransac=RansacConfig(n_hypotheses=64), max_tracks=128)
+    assert cfg.fused_group == 2 and cfg.view_3d
+    feed = runner.StagedSequence(seq, 5, "cpu")
+    poses, ok, ms = tool.plain_run(feed, 5, cfg, "cpu")
+    res = runner.run_sequence(feed, cfg, device="cpu")
+    assert poses.shape == (4, 4, 4) and ms > 0
+    np.testing.assert_array_equal(poses, res.poses)
+    np.testing.assert_array_equal(ok, res.pose_ok)
 
 
 # --- on the card: the solvers give the same bits whatever the caller allowed ---

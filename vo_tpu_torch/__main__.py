@@ -87,7 +87,7 @@ def _add_run(sub):
         "--precision",
         choices=("default", "float32"),
         default=None,
-        help="matmul precision of the plain step (utils.precision: default is float32 on the H100; --ba / --loop-closure pin float32)",
+        help="the reference's matmul precision names; every one runs in float32 on the H100 (utils.precision)",
     )
     return p
 

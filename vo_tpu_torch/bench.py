@@ -18,7 +18,7 @@ missing and the port runs from the committed poses. Prints ONE JSON line:
   the 9.6 Hz KITTI camera), sustained_fps, sustained_frames, ate_rmse_m,
   n_frames, per_frame_ms (median) -- the reference's keys; and the port's:
   per_frame_ms_runs (every timed run), per_frame_ms_min, per_frame_ms_max,
-  sustained_ate_rmse_m, pose_ok_frac, matmul_precision, allow_tf32, device,
+  sustained_ate_rmse_m, pose_ok_frac, matmul_precision, device,
   device_kind, power_limit_w (``nvidia-smi``; null where there is none).
 
 ``--stages`` prints a second line, ``{"stage_breakdown": {...}}``: the
@@ -60,7 +60,9 @@ SUSTAINED_LANDMARKS = 9000
 REPEATS = 5
 STAGE_ITERS = 20
 PROFILE_GAP_S = 0.05  # idle gap between the profiled calls of a stage
-_MARKS = {False: "vo_stage_call", True: "vo_stage_counted"}  # record_function names: the counted call's is True
+PROFILE_SESSIONS = 3  # profiler sessions a stage gets for its two counted calls to agree
+# record_function names of a session's four calls: the middle two are counted
+_MARKS = ("vo_stage_first", "vo_stage_counted_a", "vo_stage_counted_b", "vo_stage_last")
 
 
 def _q(img) -> np.ndarray:
@@ -194,29 +196,15 @@ def _time_stage(fn, device: torch.device, n_iter: int):
     return dict(ms=med(wall), enqueue_ms=med(enq), device_ms=med(dev), busy_ms=busy, launches=launches), out
 
 
-def _profile_call(fn, device: torch.device):
-    """(device busy ms, kernel/copy launches) of one call of ``fn`` under torch.profiler.
-
-    A session can leave launches at its start or its end unrecorded (seen on an H100 late in
-    ``chip_smoke.py``'s process: 18-20 of a call's launches, once all 62), so three calls run, each
-    followed by a synchronise and an idle gap, and only the device events inside the middle call's
-    span (a ``record_function`` range, widened by half a gap) are counted.
-    """
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for k in range(3):
-            with record_function(_MARKS[k == 1]):
-                fn()
-                torch.cuda.synchronize(device)
-            time.sleep(PROFILE_GAP_S)
-    events = prof.events()
+def _device_events_in(events, mark: str):
+    """(device busy ms, kernel/copy launches) of the device events inside ``mark``'s span (a
+    ``record_function`` range, widened by half a gap) among the profiler's ``events``."""
     # The range is recorded on the host and, as a user annotation, on the device timeline too.
-    spans = [e.time_range for e in events if e.name == _MARKS[True]]
+    spans = [e.time_range for e in events if e.name == mark]
     half_gap_us = 5e5 * PROFILE_GAP_S
     lo, hi = min(r.start for r in spans) - half_gap_us, max(r.end for r in spans) + half_gap_us
     evs = sorted((e.time_range.start, e.time_range.end) for e in events
-                 if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in _MARKS.values()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in _MARKS
                  and lo <= e.time_range.start <= hi)
     busy, end = 0.0, -float("inf")
     for start, stop in evs:  # the union of the intervals: streams may overlap
@@ -224,6 +212,33 @@ def _profile_call(fn, device: torch.device):
             busy += stop - max(start, end)
             end = stop
     return busy / 1e3, len(evs)
+
+
+def _profile_call(fn, device: torch.device):
+    """(device busy ms, kernel/copy launches) of one call of ``fn`` under torch.profiler.
+
+    A session can leave launches unrecorded (seen on an H100 late in ``chip_smoke.py``'s process:
+    at a session's start or end, 18-20 of a call's launches, once all 62). So a session runs four
+    calls, each followed by a synchronise and an idle gap, and counts the two middle calls apart.
+    A count stands only where both agree; after ``PROFILE_SESSIONS`` sessions without agreement
+    this raises rather than report a count that may have lost launches.
+    """
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    counts = []
+    for _ in range(PROFILE_SESSIONS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for mark in _MARKS:
+                with record_function(mark):
+                    fn()
+                    _sync(device)
+                time.sleep(PROFILE_GAP_S)
+        events = prof.events()
+        (busy, a), (_, b) = (_device_events_in(events, mark) for mark in _MARKS[1:3])
+        if a == b:
+            return busy, a
+        counts.append((a, b))
+    raise RuntimeError(f"torch.profiler lost launches: the two counted calls of each session gave {counts}")
 
 
 def stage_breakdown(pre, cfg, device=None, n_iter: int = STAGE_ITERS) -> dict:
@@ -236,8 +251,9 @@ def stage_breakdown(pre, cfg, device=None, n_iter: int = STAGE_ITERS) -> dict:
     reference's figure); ``_enqueue_ms`` until the call returns; ``_device_ms`` between CUDA events
     around the call (the host's time where it enqueues slower than the card runs); ``_busy_ms`` and
     ``_launches``, the device's busy time and kernel/copy launches of one call under
-    ``torch.profiler``. The last three are null on the CPU. Stages called apart add their own
-    dispatch; in the step they follow one another on one stream.
+    ``torch.profiler``, held to a second call's count (``_profile_call``). The last three are null
+    on the CPU. Stages called apart add their own dispatch; in the step they follow one another on
+    one stream.
     """
     from .frontend.sift import detect_and_describe
     from .frontend.track import stereo_features_with_matches, track
@@ -314,7 +330,6 @@ def main(argv=None) -> int:
     from .io import kitti, synthetic
     from .odometry import runner
     from .utils.device import resolve
-    from .utils.precision import allows_tf32
 
     device = resolve("cpu" if args.cpu else None)  # the card unless --cpu; never the CPU unasked
     size = tuple(int(x) for x in args.image_size.split(",")) if args.image_size else None
@@ -366,7 +381,6 @@ def main(argv=None) -> int:
         "sustained_ate_rmse_m": sustained_ate,
         "pose_ok_frac": float(res.pose_ok.mean()) if res.pose_ok.size else None,
         "matmul_precision": cfg.matmul_precision,
-        "allow_tf32": allows_tf32(cfg.matmul_precision),
         "device": device.type,
         "device_kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "power_limit_w": power_limit_w(device),

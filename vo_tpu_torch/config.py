@@ -251,10 +251,8 @@ class PipelineConfig:
     view_3d: bool = True  # the reference's single flag (VO.m:6)
     viz_every: int = 100  # VO.m:168
     dtype: str = "float32"
-    # Matmul precision of the plain per-frame step: "float32" / "highest", or
-    # "default", which utils.precision maps to float32 on the H100 (TF32 there
-    # flickers a quarter of the keypoints and multiplies the 200-frame ATE by
-    # eight). The refined path is float32 whatever this says: reduced
-    # precision perturbs the DoG pyramid enough to flicker detections, fatal
-    # to the multi-view consistency window BA needs.
+    # The reference's matmul precision names: "float32" / "highest", or
+    # "default", its accelerator's reduced rate. On the H100 utils.precision
+    # runs every one of them in float32: TF32 there flickers a quarter of the
+    # keypoints and multiplies the 200-frame ATE by eight.
     matmul_precision: str = "default"

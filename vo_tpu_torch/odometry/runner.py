@@ -15,12 +15,13 @@ descriptor ring). The frame loop's only host waits are the refiner's
 frame, and the full trajectory is re-anchored onto the corrected keyframes
 at the end (odometry.correction).
 
-Precision (utils.precision): the plain path runs at ``cfg.matmul_precision``,
-the refined path pinned to float32 for the whole run, as the reference pins
-it for ``use_ba``. The port pins ``use_loop_closure`` alone too: the TF32
-flags are global to the process, so the worker's solvers could not pin
-themselves without flipping the flags under the frame loop's step. The
-caller's flags are restored when the run returns or raises.
+Precision (utils.precision): every name ``cfg.matmul_precision`` may hold is
+float32 on the card, and the whole run is pinned to it, as the reference pins
+a ``use_ba`` run. A ``use_loop_closure`` run is pinned whole too, which the
+reference does not do: the TF32 flags are global to the process, so the
+worker's solvers could not pin themselves without flipping the flags under
+the frame loop's step. The caller's flags are restored when the run returns
+or raises.
 
 Any per-frame host consumer (``progress``, ``metrics_path``, periodic
 checkpoints) takes the run off the deferred path: one frame per step, and the
@@ -54,7 +55,7 @@ from ..config import PipelineConfig
 from ..frontend.match import match
 from ..utils.device import resolve
 from ..utils.host_copy import HostCopy, upload
-from ..utils.precision import allows_tf32, matmul_precision
+from ..utils.precision import matmul_precision
 from ..utils.profiling import MetricsLog, pretty_frame
 from . import landmarks as lm_mod
 from . import checkpoint as ckpt_mod
@@ -252,227 +253,213 @@ def run_sequence(
     (VO.m:168-204, 261-277; needs matplotlib). ``verbose`` is accepted for the
     reference's call sites and unused, as there. ``mesh`` routes the step through
     the dist layer (module docstring); every rank of the mesh makes this call.
-    The run is at ``cfg.matmul_precision``, or float32 on the refined path
-    (module docstring); an unknown name raises ``ValueError``.
+    The run is in float32 whatever ``cfg.matmul_precision`` names (module
+    docstring); an unknown name raises ``ValueError``.
     """
-    allows_tf32(cfg.matmul_precision)  # an unknown name raises on the refined path too
-    with matmul_precision("float32" if use_ba or use_loop_closure else cfg.matmul_precision):
-        return _run_sequence(
-            seq, cfg, n_frames=n_frames, seed=seed, insert_landmarks=insert_landmarks, progress=progress,
-            warmup=warmup, checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every, resume=resume,
-            metrics_path=metrics_path, use_ba=use_ba, use_loop_closure=use_loop_closure, viz_every=viz_every,
-            viz_dir=viz_dir, mesh=mesh, device=device,
-        )
+    with matmul_precision(cfg.matmul_precision):
+        device = resolve(device)
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a torch.distributed DeviceMesh (dist.mesh.make_mesh), not {type(mesh).__name__}")
+        # Under a mesh every rank computes everything and rank 0 alone writes files.
+        writer = mesh is None or dist.get_rank() == 0
+        calib = seq.calib.to(device)
+        if insert_landmarks is None:
+            insert_landmarks = cfg.view_3d
+        n = len(seq) if n_frames is None else min(n_frames, len(seq))
+        refined = use_ba or use_loop_closure
+        checkpointing = bool(checkpoint_every and checkpoint_path)
+        # Deferred path: no per-frame host consumer, so the history stays on the
+        # device and the host never waits inside the loop. Refinement stays on it
+        # (the worker owns its host copies); progress / metrics / checkpoints need
+        # per-frame host values.
+        deferred = not (progress is not None or metrics_path is not None or checkpointing)
+        # The refined path steps frame by frame: keyframe submission needs
+        # state.prev at exact keyframe boundaries.
+        # A mesh steps frame by frame too: its data axis shards ONE stereo pair.
+        group = cfg.fused_group if deferred and not refined and mesh is None else 1
 
+        def run_group(state, lmap, dev_frames):
+            query = None
+            if len(dev_frames) == 2:
+                r = vo_step(state, dev_frames[0], dev_frames[1], calib, cfg, return_feats=use_loop_closure, mesh=mesh)
+                state, outs = r[0], [r[1]]
+                query = r[2] if use_loop_closure else None
+            else:
+                state, outs = vo_step_multi(state, dev_frames, calib, cfg)
+            if lmap is not None:
+                for out in outs:
+                    lm_mod.insert(lmap, out.new_lm_l_px, out.new_lm_r_px, out.new_lm_mask, out.pose_c2w, calib, cfg.landmarks)
+            return state, outs, query
 
-def _run_sequence(
-    seq, cfg, *, n_frames, seed, insert_landmarks, progress, warmup, checkpoint_path, checkpoint_every, resume,
-    metrics_path, use_ba, use_loop_closure, viz_every, viz_dir, mesh, device,
-) -> RunResult:
-    """run_sequence's body, inside its precision block."""
-    device = resolve(device)
-    if mesh is not None and not isinstance(mesh, DeviceMesh):
-        raise TypeError(f"mesh must be a torch.distributed DeviceMesh (dist.mesh.make_mesh), not {type(mesh).__name__}")
-    # Under a mesh every rank computes everything and rank 0 alone writes files.
-    writer = mesh is None or dist.get_rank() == 0
-    calib = seq.calib.to(device)
-    if insert_landmarks is None:
-        insert_landmarks = cfg.view_3d
-    n = len(seq) if n_frames is None else min(n_frames, len(seq))
-    refined = use_ba or use_loop_closure
-    checkpointing = bool(checkpoint_every and checkpoint_path)
-    # Deferred path: no per-frame host consumer, so the history stays on the
-    # device and the host never waits inside the loop. Refinement stays on it
-    # (the worker owns its host copies); progress / metrics / checkpoints need
-    # per-frame host values.
-    deferred = not (progress is not None or metrics_path is not None or checkpointing)
-    # The refined path steps frame by frame: keyframe submission needs
-    # state.prev at exact keyframe boundaries.
-    # A mesh steps frame by frame too: its data axis shards ONE stereo pair.
-    group = cfg.fused_group if deferred and not refined and mesh is None else 1
-
-    def run_group(state, lmap, dev_frames):
-        query = None
-        if len(dev_frames) == 2:
-            r = vo_step(state, dev_frames[0], dev_frames[1], calib, cfg, return_feats=use_loop_closure, mesh=mesh)
-            state, outs = r[0], [r[1]]
-            query = r[2] if use_loop_closure else None
-        else:
-            state, outs = vo_step_multi(state, dev_frames, calib, cfg)
-        if lmap is not None:
-            for out in outs:
-                lm_mod.insert(lmap, out.new_lm_l_px, out.new_lm_r_px, out.new_lm_mask, out.pose_c2w, calib, cfg.landmarks)
-        return state, outs, query
-
-    state = init_state(cfg, seed, device)
-    lmap = lm_mod.init_map(cfg.landmarks, device) if insert_landmarks else None
-    hist = _History()
-    start_frame = 0
-    resumed_refiner_state = None
-    if resume and checkpoint_path and os.path.exists(checkpoint_path):
-        ck = ckpt_mod.load(checkpoint_path, device)
-        state, start_frame = ck.state, ck.frame_idx
-        if ck.lmap is not None:
-            lmap = ck.lmap
-        rows = len(ck.poses)
-        # Real per-frame stats (v2 checkpoints); zero-fill only for v1.
-        hist.extend_host(
-            pose_c2w=ck.poses,
-            rel_pose=ck.rel_poses,
-            n_inliers=ck.n_inliers if ck.n_inliers is not None else [0] * rows,
-            n_tracks=ck.n_tracks if ck.n_tracks is not None else [0] * rows,
-            pose_ok=ck.pose_ok if ck.pose_ok is not None else [True] * rows,
-        )
-        resumed_refiner_state = ck.refiner
-
-    if warmup:
-        # Throwaway state and map: first-use costs (kernel build, library
-        # handles, allocator growth, under a mesh the first collectives of
-        # every rank) land here, outside the timed loop.
-        l0, r0 = (to_device(im, device) for im in seq.frame(0))
-        w_map = lm_mod.init_map(cfg.landmarks, device) if insert_landmarks else None
-        if group > 1:
-            run_group(init_state(cfg, seed, device), w_map, [l0, r0] * group)
-        if group == 1 or (n - start_frame) % group != 0:
-            run_group(init_state(cfg, seed, device), w_map, [l0, r0])
-        _sync(device)
-        del w_map
-
-    refiner = kfs = None
-    if refined:
-        from .refiner import RefinerWorker
-
-        # Constructed before the timed loop: its solver and verification
-        # warm-ups run here.
-        refiner = RefinerWorker(seq.calib, cfg, use_ba=use_ba, use_loop_closure=use_loop_closure, device=device, mesh=mesh)
-        kfs = _Keyframes(refiner, cfg, device, use_ba)
-        if resumed_refiner_state is not None:
-            # Bit-exact resume of refined runs: ledgers, archive, loop edges,
-            # in-flight rounds, associator rings.
-            kfs.restore_state(resumed_refiner_state)
-
-    mlog = MetricsLog(metrics_path) if metrics_path and writer else None
-    gt_poses = getattr(seq, "gt_poses", None)
-    if not writer:
-        viz_every = 0
-    if viz_every and viz_dir:
-        os.makedirs(viz_dir, exist_ok=True)
-
-    def live_viz(i, out, left):
-        # The reference's live telemetry: every-Nth-frame figures and console
-        # block (VO.m:168-204, 261-277). A deliberate wait for the device,
-        # amortized over viz_every frames like the reference's mod(i,100).
-        names = ("pose_c2w", "rel_pose", "tracked_cur_px", "tracked_old_px", "tracked_disp_3d", "tracked_mask")
-        h = dict(zip(names, HostCopy(*(getattr(out, k) for k in names)).numpy()))
-        print(pretty_frame(i, h["rel_pose"], h["pose_c2w"], _dt_at(seq, i)))
-        if not viz_dir:
-            return
-        from ..viz import figures
-
-        poses_so_far = hist.stacked()["pose_c2w"]
-        if len(poses_so_far) == 0:
-            poses_so_far = h["pose_c2w"][None]
-        lms = lmap.xyz[: int(lmap.count)].cpu().numpy() if lmap is not None else None
-        figures.frame_report(
-            viz_dir, i, _host_image(left), h, poses_so_far,
-            np.asarray(gt_poses) if gt_poses is not None else None,
-            times=getattr(seq, "times", None), landmarks=lms,
-        )
-
-    def host_frame(i, out, state, t_frame):
-        """The non-deferred path's per-frame work: one host copy of the frame's scalars, then
-        whoever asked for them."""
-        fields = _HIST_FIELDS + (("mean_reproj_err",) if mlog is not None else ())
-        h = dict(zip(fields, HostCopy(*(getattr(out, f) for f in fields)).numpy()))
-        n_tr, n_in, ok = int(h["n_tracks"]), int(h["n_inliers"]), bool(h["pose_ok"])
-        if i > 0:  # all_poses starts at frame 2 (VO.m:133)
+        state = init_state(cfg, seed, device)
+        lmap = lm_mod.init_map(cfg.landmarks, device) if insert_landmarks else None
+        hist = _History()
+        start_frame = 0
+        resumed_refiner_state = None
+        if resume and checkpoint_path and os.path.exists(checkpoint_path):
+            ck = ckpt_mod.load(checkpoint_path, device)
+            state, start_frame = ck.state, ck.frame_idx
+            if ck.lmap is not None:
+                lmap = ck.lmap
+            rows = len(ck.poses)
+            # Real per-frame stats (v2 checkpoints); zero-fill only for v1.
             hist.extend_host(
-                pose_c2w=[np.array(h["pose_c2w"])], rel_pose=[np.array(h["rel_pose"])],
-                n_inliers=[n_in], n_tracks=[n_tr], pose_ok=[ok],
+                pose_c2w=ck.poses,
+                rel_pose=ck.rel_poses,
+                n_inliers=ck.n_inliers if ck.n_inliers is not None else [0] * rows,
+                n_tracks=ck.n_tracks if ck.n_tracks is not None else [0] * rows,
+                pose_ok=ck.pose_ok if ck.pose_ok is not None else [True] * rows,
             )
-        if progress is not None:
-            progress(i, dict(n_tracks=n_tr, n_inliers=n_in, pose_ok=ok))
-        if mlog is not None:
-            mlog.log(
-                i,
-                n_tracks=n_tr,
-                n_inliers=n_in,
-                inlier_ratio=round(n_in / max(n_tr, 1), 4),
-                pose_ok=ok,
-                mean_reproj_err=float(h["mean_reproj_err"]),
-                frame_ms=round(1000.0 * (time.perf_counter() - t_frame), 2),
+            resumed_refiner_state = ck.refiner
+
+        if warmup:
+            # Throwaway state and map: first-use costs (kernel build, library
+            # handles, allocator growth, under a mesh the first collectives of
+            # every rank) land here, outside the timed loop.
+            l0, r0 = (to_device(im, device) for im in seq.frame(0))
+            w_map = lm_mod.init_map(cfg.landmarks, device) if insert_landmarks else None
+            if group > 1:
+                run_group(init_state(cfg, seed, device), w_map, [l0, r0] * group)
+            if group == 1 or (n - start_frame) % group != 0:
+                run_group(init_state(cfg, seed, device), w_map, [l0, r0])
+            _sync(device)
+            del w_map
+
+        refiner = kfs = None
+        if refined:
+            from .refiner import RefinerWorker
+
+            # Constructed before the timed loop: its solver and verification
+            # warm-ups run here.
+            refiner = RefinerWorker(seq.calib, cfg, use_ba=use_ba, use_loop_closure=use_loop_closure, device=device, mesh=mesh)
+            kfs = _Keyframes(refiner, cfg, device, use_ba)
+            if resumed_refiner_state is not None:
+                # Bit-exact resume of refined runs: ledgers, archive, loop edges,
+                # in-flight rounds, associator rings.
+                kfs.restore_state(resumed_refiner_state)
+
+        mlog = MetricsLog(metrics_path) if metrics_path and writer else None
+        gt_poses = getattr(seq, "gt_poses", None)
+        if not writer:
+            viz_every = 0
+        if viz_every and viz_dir:
+            os.makedirs(viz_dir, exist_ok=True)
+
+        def live_viz(i, out, left):
+            # The reference's live telemetry: every-Nth-frame figures and console
+            # block (VO.m:168-204, 261-277). A deliberate wait for the device,
+            # amortized over viz_every frames like the reference's mod(i,100).
+            names = ("pose_c2w", "rel_pose", "tracked_cur_px", "tracked_old_px", "tracked_disp_3d", "tracked_mask")
+            h = dict(zip(names, HostCopy(*(getattr(out, k) for k in names)).numpy()))
+            print(pretty_frame(i, h["rel_pose"], h["pose_c2w"], _dt_at(seq, i)))
+            if not viz_dir:
+                return
+            from ..viz import figures
+
+            poses_so_far = hist.stacked()["pose_c2w"]
+            if len(poses_so_far) == 0:
+                poses_so_far = h["pose_c2w"][None]
+            lms = lmap.xyz[: int(lmap.count)].cpu().numpy() if lmap is not None else None
+            figures.frame_report(
+                viz_dir, i, _host_image(left), h, poses_so_far,
+                np.asarray(gt_poses) if gt_poses is not None else None,
+                times=getattr(seq, "times", None), landmarks=lms,
             )
-        if checkpointing and (i + 1) % checkpoint_every == 0:
-            # Every rank drains its worker here (the drain runs the staged window solves,
-            # whose collectives need every rank's worker); the writer alone saves.
-            refiner_state = kfs.checkpoint_state() if kfs is not None else None
-            if writer:
-                rows = hist.stacked()
-                ckpt_mod.save(
-                    checkpoint_path, state, lmap, rows["pose_c2w"], rows["rel_pose"], i + 1,
-                    stats=(rows["n_inliers"], rows["n_tracks"], rows["pose_ok"]),
-                    refiner_state=refiner_state,
+
+        def host_frame(i, out, state, t_frame):
+            """The non-deferred path's per-frame work: one host copy of the frame's scalars, then
+            whoever asked for them."""
+            fields = _HIST_FIELDS + (("mean_reproj_err",) if mlog is not None else ())
+            h = dict(zip(fields, HostCopy(*(getattr(out, f) for f in fields)).numpy()))
+            n_tr, n_in, ok = int(h["n_tracks"]), int(h["n_inliers"]), bool(h["pose_ok"])
+            if i > 0:  # all_poses starts at frame 2 (VO.m:133)
+                hist.extend_host(
+                    pose_c2w=[np.array(h["pose_c2w"])], rel_pose=[np.array(h["rel_pose"])],
+                    n_inliers=[n_in], n_tracks=[n_tr], pose_ok=[ok],
                 )
+            if progress is not None:
+                progress(i, dict(n_tracks=n_tr, n_inliers=n_in, pose_ok=ok))
+            if mlog is not None:
+                mlog.log(
+                    i,
+                    n_tracks=n_tr,
+                    n_inliers=n_in,
+                    inlier_ratio=round(n_in / max(n_tr, 1), 4),
+                    pose_ok=ok,
+                    mean_reproj_err=float(h["mean_reproj_err"]),
+                    frame_ms=round(1000.0 * (time.perf_counter() - t_frame), 2),
+                )
+            if checkpointing and (i + 1) % checkpoint_every == 0:
+                # Every rank drains its worker here (the drain runs the staged window solves,
+                # whose collectives need every rank's worker); the writer alone saves.
+                refiner_state = kfs.checkpoint_state() if kfs is not None else None
+                if writer:
+                    rows = hist.stacked()
+                    ckpt_mod.save(
+                        checkpoint_path, state, lmap, rows["pose_c2w"], rows["rel_pose"], i + 1,
+                        stats=(rows["n_inliers"], rows["n_tracks"], rows["pose_ok"]),
+                        refiner_state=refiner_state,
+                    )
 
-    t0 = time.perf_counter()
-    i = start_frame
-    while i < n:
-        t_frame = time.perf_counter()
-        g = group if i + group <= n else 1  # single-frame tail
-        host_frames = [seq.frame(i + k) for k in range(g)]
-        dev_frames = [to_device(im, device) for lr in host_frames for im in lr]
-        key = kfs is not None and kfs.is_keyframe(i)
-        if key:
-            kfs.throttle()
-        state, outs, query = run_group(state, lmap, dev_frames)
-        if key:
-            kfs.submit(i, state, outs[0], query)
-        for k, out in enumerate(outs):
-            j = i + k
-            if not deferred:
-                host_frame(j, out, state, t_frame)
-            elif j > 0:  # all_poses starts at frame 2 (VO.m:133)
-                hist.dev.append(out)
-            if viz_every and j > 0 and j % viz_every == 0:
-                live_viz(j, out, host_frames[k][0])
-        i += g
-    _sync(device)
-    wall = time.perf_counter() - t0
-    if mlog is not None:
-        mlog.close()
+        t0 = time.perf_counter()
+        i = start_frame
+        while i < n:
+            t_frame = time.perf_counter()
+            g = group if i + group <= n else 1  # single-frame tail
+            host_frames = [seq.frame(i + k) for k in range(g)]
+            dev_frames = [to_device(im, device) for lr in host_frames for im in lr]
+            key = kfs is not None and kfs.is_keyframe(i)
+            if key:
+                kfs.throttle()
+            state, outs, query = run_group(state, lmap, dev_frames)
+            if key:
+                kfs.submit(i, state, outs[0], query)
+            for k, out in enumerate(outs):
+                j = i + k
+                if not deferred:
+                    host_frame(j, out, state, t_frame)
+                elif j > 0:  # all_poses starts at frame 2 (VO.m:133)
+                    hist.dev.append(out)
+                if viz_every and j > 0 and j % viz_every == 0:
+                    live_viz(j, out, host_frames[k][0])
+            i += g
+        _sync(device)
+        wall = time.perf_counter() - t0
+        if mlog is not None:
+            mlog.close()
 
-    rows = hist.stacked()
-    poses, rels = rows["pose_c2w"], rows["rel_pose"]
-    refine_stats: dict = {}
-    if refiner is not None:
-        refiner.close()
-        refine_stats = dict(refiner.stats)
-        refine_stats["main_wait_s"] = round(kfs.wait_s, 3)
-        kf_idx, kf_poses = refiner.corrected_keyframes()
-        # History row for frame i is i-1 (all_poses convention, VO.m:133).
-        kf_rows = kf_idx - 1
-        keep = (kf_rows >= 0) & (kf_rows < poses.shape[0])
-        if keep.any():
-            poses = reanchor_trajectory(poses, kf_rows[keep], kf_poses[keep])
-            rels = rebuild_rel_poses(poses)
-        refine_stats["n_keyframes"] = int(kf_idx.size)
+        rows = hist.stacked()
+        poses, rels = rows["pose_c2w"], rows["rel_pose"]
+        refine_stats: dict = {}
+        if refiner is not None:
+            refiner.close()
+            refine_stats = dict(refiner.stats)
+            refine_stats["main_wait_s"] = round(kfs.wait_s, 3)
+            kf_idx, kf_poses = refiner.corrected_keyframes()
+            # History row for frame i is i-1 (all_poses convention, VO.m:133).
+            kf_rows = kf_idx - 1
+            keep = (kf_rows >= 0) & (kf_rows < poses.shape[0])
+            if keep.any():
+                poses = reanchor_trajectory(poses, kf_rows[keep], kf_poses[keep])
+                rels = rebuild_rel_poses(poses)
+            refine_stats["n_keyframes"] = int(kf_idx.size)
 
-    if lmap is not None:
-        lms = lmap.xyz[: int(lmap.count)].cpu().numpy()
-    else:
-        lms = np.zeros((0, 3), np.float32)
-    n_run = n - start_frame
-    return RunResult(
-        poses=poses,
-        rel_poses=rels,
-        n_inliers=rows["n_inliers"],
-        n_tracks=rows["n_tracks"],
-        pose_ok=rows["pose_ok"],
-        landmarks=lms,
-        frames_per_sec=n_run / wall if wall > 0 else float("nan"),
-        per_frame_ms=1000.0 * wall / max(n_run, 1),
-        refine_stats=refine_stats,
-    )
+        if lmap is not None:
+            lms = lmap.xyz[: int(lmap.count)].cpu().numpy()
+        else:
+            lms = np.zeros((0, 3), np.float32)
+        n_run = n - start_frame
+        return RunResult(
+            poses=poses,
+            rel_poses=rels,
+            n_inliers=rows["n_inliers"],
+            n_tracks=rows["n_tracks"],
+            pose_ok=rows["pose_ok"],
+            landmarks=lms,
+            frames_per_sec=n_run / wall if wall > 0 else float("nan"),
+            per_frame_ms=1000.0 * wall / max(n_run, 1),
+            refine_stats=refine_stats,
+        )
 
 
 def save_result(result: RunResult, out_dir: str) -> None:

@@ -4,29 +4,27 @@ The reference enters ``jax.default_matmul_precision("float32")`` around each
 piece of geometry that needs it, and runs the plain per-frame step at
 ``cfg.matmul_precision``. On a CUDA card the knobs are two process-global
 flags, ``torch.backends.cuda.matmul.allow_tf32`` and
-``torch.backends.cudnn.allow_tf32``. ``matmul_precision(name)`` sets both for
-the duration of a block (or of a decorated function) and gives the caller's
-values back on exit, whether the block returns or raises.
+``torch.backends.cudnn.allow_tf32``. ``matmul_precision(name)`` turns both
+off for the duration of a block (or of a decorated function) and gives the
+caller's values back on exit, whether the block returns or raises.
 
-Names (the reference's):
-- ``"float32"`` / ``"highest"``: full float32 products, TF32 off.
+Names (the reference's), all full float32 products on this card:
+- ``"float32"`` / ``"highest"``.
 - ``"default"``: the reference's reduced-precision accelerator rate, which on
   an H100 would be TF32 in the plain step's matmuls and convolutions (the
   pyramid's band-matrix GEMMs). Measured on an H100 at 700 W
-  (``tools/precision_torch.py``), 24% of a frame's float32 keypoints have no
-  TF32 keypoint within 0.01 px, and the 200-frame ATE goes from 0.029 m to 0.244 m,
-  at no gain in ms/frame (the step is bound by the host). So the port maps
-  ``"default"`` to float32: ``DEFAULT_ALLOWS_TF32`` is False. It is read at
-  every call; the measuring tool sets it to True to measure the TF32 mapping
-  again.
+  (``tools/precision_torch.py``, PERF.md section 6), TF32 moves about a
+  quarter of a frame's keypoints and multiplies the 200-frame ATE several
+  times over, at no gain in ms/frame (the step is bound by the host). So
+  ``"default"`` is float32 here too.
 
 Any other name raises ``ValueError``.
 
 The flags are global to the process, not to a thread: a block that changed
 them on one thread would change them under every other thread too. So a
-block whose flags already hold its value changes nothing, and a run that has
-a second thread (the refiner's worker) pins float32 around the whole run;
-the solvers' own blocks are then no-ops inside it.
+block whose flags are already off writes nothing, and a run that has a
+second thread (the refiner's worker) pins float32 around the whole run; the
+solvers' own blocks are then no-ops inside it.
 """
 from __future__ import annotations
 
@@ -34,30 +32,20 @@ import contextlib
 
 import torch
 
-DEFAULT_ALLOWS_TF32 = False
-
-PINNED = ("float32", "highest")
-
-
-def allows_tf32(name: str) -> bool:
-    """Whether ``name`` lets matmuls and convolutions run in TF32; raises ``ValueError`` on an unknown name."""
-    if name in PINNED:
-        return False
-    if name == "default":
-        return DEFAULT_ALLOWS_TF32
-    raise ValueError(f"unknown matmul precision {name!r}: expected one of {sorted(PINNED + ('default',))}")
+NAMES = ("default", "float32", "highest")
 
 
 @contextlib.contextmanager
 def matmul_precision(name: str):
-    """Run the block (or the decorated function) at ``name``'s precision, then restore the caller's flags."""
-    tf32 = allows_tf32(name)
+    """Run the block (or the decorated function) in float32, then restore the caller's flags."""
+    if name not in NAMES:
+        raise ValueError(f"unknown matmul precision {name!r}: expected one of {sorted(NAMES)}")
     mm, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
     before = (mm.allow_tf32, cudnn.allow_tf32)
-    if before == (tf32, tf32):
+    if before == (False, False):
         yield
         return
-    mm.allow_tf32 = cudnn.allow_tf32 = tf32
+    mm.allow_tf32 = cudnn.allow_tf32 = False
     try:
         yield
     finally:
