@@ -114,8 +114,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      metrics, and vo_ba and vo_ba_lc with the same keyframe count, 7, which no
      draw changes. The phase adds about a minute (its own render of 30 frames
      included) and prints the seconds of both halves;
+ 14. the reference-scale tools at a small scale: phase 5's feed written as a frame
+     cache, loaded through ``tools/severity_sweep_torch.load_prefix`` with
+     load-time extra noise 0.08 (the full run's feed severity), staged, and run
+     through ``tools/bigrun_torch.run_configs`` for ``vo`` and ``vo_lc`` with a
+     loop-closer capacity of 16 keyframes (``LoopConfig(max_keyframes=16)``), so
+     the graph is decimated as the full run's is at 512. Fails unless ``vo_lc``
+     archived 39 keyframes and decimated 3 times (the reference LoopCloser's count
+     for 39 keyframes at capacity 16: tests/test_torch_bigrun.py), both runs have
+     finite poses and metrics and pose_ok >= 0.95, and K1 and K2 were launched. A
+     capacity at or under ``min_gap`` (20) leaves no keyframe old enough to be a
+     candidate, so no loop can close here: the phase fails unless ``vo_lc``
+     verified none and equals ``vo``'s ATE within 0.02 m (it steps frame by frame);
+     the full run is where closures fire;
 The line before the last is a JSON summary of the kernels: ``launches`` summed
-over the counted runs of phases 4, 5, 7, 8, 9, rank 0 of phase 12 and 13 (``launches_by_path`` has each;
+over the counted runs of phases 4, 5, 7, 8, 9, rank 0 of phase 12, 13 and 14 (``launches_by_path`` has each;
 the counters are reset just before each path and read just after), ``max_abs_err`` the largest of the three batches' (``max_abs_err_by_batch`` has
 each), ``ms`` the one-launch detection call of 4 images with cold inputs, ``octave0_ms``, ``per_octave_launches_ms`` and
 ``copy_same_bytes_ms`` timed the same way, ``back_to_back_ms``, ``plain_ms``
@@ -187,13 +200,17 @@ MESH_TIMEOUT_S = 300.0  # phase 12: a launched world still running after this lo
 SUBPROCESS_TIMEOUT_S = 400
 METRICS_KEYS = {"frame", "n_tracks", "n_inliers", "inlier_ratio", "pose_ok", "mean_reproj_err", "frame_ms"}
 BENCH_KEYS = {  # phase 13: the port's bench line (vo_tpu_torch/bench.py)
-    "metric", "value", "unit", "vs_realtime", "sustained_fps", "sustained_frames", "ate_rmse_m", "n_frames",
-    "per_frame_ms", "device", "device_kind", "per_frame_ms_runs", "per_frame_ms_min", "per_frame_ms_max",
-    "sustained_ate_rmse_m", "pose_ok_frac", "matmul_precision", "power_limit_w",
+    "metric", "value", "unit", "vs_baseline", "vs_realtime", "sustained_fps", "sustained_frames", "cpu_baseline_fps",
+    "ate_rmse_m", "n_frames", "per_frame_ms", "device", "device_kind", "per_frame_ms_runs", "per_frame_ms_min",
+    "per_frame_ms_max", "sustained_ate_rmse_m", "pose_ok_frac", "matmul_precision", "power_limit_w",
 }
 BENCH_STAGES = ("detect_describe_x2", "stereo_match", "temporal_track", "triangulate_ransac")
 BENCH_ATE_TOL_M = 1e-6  # phase 13: the bench's run against phase 4's
 LONGRUN_FRAMES = 40  # phase 13: the first frames of the phase-5 feed
+SWEEP_EXTRA_NOISE = 0.08  # phase 14: load-time noise on the phase-5 feed (the full run's severity)
+SMALL_CAPACITY = 16  # phase 14: LoopConfig.max_keyframes
+SMALL_CAPACITY_DECIMATIONS = 3  # phase 14: the reference LoopCloser's for 39 keyframes at capacity 16
+POSE_OK_FRAC_MIN = 0.95  # phase 14
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 KERNELS = {
@@ -1043,9 +1060,7 @@ def bench_surface(feed5, cfg: PipelineConfig, device, ate4: float, launches_by_p
         raise AssertionError(f"the bench did not launch both kernels: {la}")
 
     t = time.perf_counter()
-    spec = importlib.util.spec_from_file_location("longrun_torch", os.path.join(REPO, "tools", "longrun_torch.py"))
-    longrun = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(longrun)
+    longrun = load_tool("longrun_torch")
     poses = feed5.gt_poses[:LONGRUN_FRAMES]
     payload = counted(launches_by_path, "longrun", lambda: longrun.run_matrix(feed5, poses, cfg, device))
     c = payload["configs"]
@@ -1059,6 +1074,62 @@ def bench_surface(feed5, cfg: PipelineConfig, device, ate4: float, launches_by_p
     want_kf = (LONGRUN_FRAMES - 1) // cfg.ba.keyframe_every
     if not c["vo_ba"]["n_keyframes"] == c["vo_ba_lc"]["n_keyframes"] == want_kf:
         raise AssertionError(f"keyframes vo_ba {c['vo_ba']['n_keyframes']}, vo_ba_lc {c['vo_ba_lc']['n_keyframes']}, expected {want_kf}")
+
+
+def load_tool(name: str):
+    """tools/<name>.py as a module."""
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def reference_scale_tools(feed5, cfg: PipelineConfig, device, launches_by_path: dict) -> None:
+    """Phase 14: bigrun_torch.run_configs over phase 5's feed, loaded through severity_sweep_torch."""
+    from vo_tpu_torch.bench import stage_frames
+
+    t = time.perf_counter()
+    sweep, bigrun = load_tool("severity_sweep_torch"), load_tool("bigrun_torch")
+    n, gt = len(feed5), feed5.gt_poses
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = os.path.join(tmp, "outback.npz")
+        frames = [[im.cpu().numpy() for im in feed5.frame(i)] for i in range(n)]
+        np.savez(cache, l=np.stack([f[0] for f in frames]), r=np.stack([f[1] for f in frames]), poses=gt)
+        del frames
+        pre = sweep.load_prefix(cache, n, SWEEP_EXTRA_NOISE)
+    pre.calib = feed5.calib
+    times = np.arange(n) * runner.KITTI_DT
+    pre.times = times
+    staged = stage_frames(pre, device)
+    del pre
+    t_load = time.perf_counter() - t
+    small = dataclasses.replace(cfg, loop=dataclasses.replace(cfg.loop, max_keyframes=SMALL_CAPACITY))
+    t = time.perf_counter()
+    out = counted(launches_by_path, "bigrun", lambda: bigrun.run_configs(staged, gt, times, small, ["vo", "vo_lc"], device))
+    vo, lc = out["configs"]["vo"], out["configs"]["vo_lc"]
+    keep = ("frames_per_sec", "ate_rmse_m", "xz_max_m", "pose_ok_frac", "peak_memory_bytes", "n_keyframes", "decimations",
+            "lc_verified", "loops_closed", "main_wait_s")
+    print(
+        f"[14] bigrun_torch.run_configs over the {n}-frame feed (load_prefix at extra noise {SWEEP_EXTRA_NOISE}, "
+        f"{t_load:.1f} s; runs {time.perf_counter() - t:.1f} s), loop capacity {SMALL_CAPACITY}, launches "
+        f"{launches_by_path['bigrun']}:\n     vo {json.dumps({k: vo[k] for k in keep if k in vo})}\n"
+        f"     vo_lc {json.dumps({k: lc[k] for k in keep if k in lc})}"
+    )
+    for name, row in out["configs"].items():
+        vals = [row[k] for k in ("ate_rmse_m", "ate_max_m", "xz_mean_m", "xz_max_m", "per_frame_ms")]
+        if not (all(np.isfinite(v) for v in vals) and row["pose_ok_frac"] >= POSE_OK_FRAC_MIN):
+            raise AssertionError(f"{name}: {row}")
+    want_kf = (n - 1) // cfg.ba.keyframe_every
+    if (lc["n_keyframes"], lc["decimations"]) != (want_kf, SMALL_CAPACITY_DECIMATIONS):
+        raise AssertionError(f"vo_lc: {lc['n_keyframes']} keyframes, {lc['decimations']} decimations; "
+                             f"expected {want_kf} and {SMALL_CAPACITY_DECIMATIONS}")
+    # A candidate must be min_gap keyframes older than the newest, and at most max_keyframes are archived.
+    if small.loop.max_keyframes > small.loop.min_gap:
+        raise AssertionError(f"capacity {small.loop.max_keyframes} > min_gap {small.loop.min_gap}: loops could close here")
+    if lc["lc_verified"] != 0 or lc["loops_closed"] != 0 or not abs(lc["ate_rmse_m"] - vo["ate_rmse_m"]) <= REFINED_ATE_SLACK_M:
+        raise AssertionError(f"vo_lc verified or closed a loop with no candidate possible, or left vo: {lc}")
+    if min(launches_by_path["bigrun"][k] for k in KERNELS) <= 0:
+        raise AssertionError(f"run_configs did not launch both kernels: {launches_by_path['bigrun']}")
 
 
 def main() -> int:
@@ -1131,6 +1202,7 @@ def main() -> int:
         nccl_one_rank(feed, cfg, device, tmp)
         shared_card_mesh(feed, feed5, cfg, device, res, np.asarray(seq.gt_poses), tmp, launches_by_path)
     bench_surface(feed5, cfg, device, ate["rmse"], launches_by_path)
+    reference_scale_tools(feed5, cfg, device, launches_by_path)
     launches = {k: sum(v[k] for v in launches_by_path.values()) for k in KERNELS}
 
     summary = [

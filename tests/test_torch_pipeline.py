@@ -183,12 +183,13 @@ def test_runner_takes_every_reference_option():
 
 def test_port_never_imports_jax():
     """Importing EVERY vo_tpu_torch module (the command line's ``__main__``, the bench and the
-    figures included), chip_smoke, bench_torch and the port's tools leaves jax and every module
-    of vo_tpu out of sys.modules."""
+    figures included), chip_smoke, bench_torch and the port's tools (the reference-scale ones
+    too) leaves jax and every module of vo_tpu out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "sys.path.insert(0, 'tools')\n"
         "import vo_tpu_torch, chip_smoke, bench_torch, profile_torch_step, longrun_torch, precision_torch\n"
+        "import bigrun_torch, render_cache_torch, severity_sweep_torch, measure_cpu_baseline_torch\n"
         "for m in pkgutil.walk_packages(vo_tpu_torch.__path__, 'vo_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"

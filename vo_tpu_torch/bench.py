@@ -14,9 +14,10 @@ frames (KITTI-00 GT poses 0..N-1, 9000 landmarks, through the
 ``preload_cached`` cache), which the reference skips where its dataset is
 missing and the port runs from the committed poses. Prints ONE JSON line:
 
-  metric, value (median frames/s of the timed runs), unit, vs_realtime (against
-  the 9.6 Hz KITTI camera), sustained_fps, sustained_frames, ate_rmse_m,
-  n_frames, per_frame_ms (median) -- the reference's keys; and the port's:
+  metric, value (median frames/s of the timed runs), unit, vs_baseline,
+  vs_realtime (against the 9.6 Hz KITTI camera), sustained_fps,
+  sustained_frames, cpu_baseline_fps, ate_rmse_m, n_frames, per_frame_ms
+  (median) -- the reference's keys; and the port's:
   per_frame_ms_runs (every timed run), per_frame_ms_min, per_frame_ms_max,
   sustained_ate_rmse_m, pose_ok_frac, matmul_precision, device,
   device_kind, power_limit_w (``nvidia-smi``; null where there is none).
@@ -27,11 +28,15 @@ reference's four stages called apart on frame 1 (``stage_breakdown``).
 The precision is ``cfg.matmul_precision`` (``--precision``), applied by the
 runner (``utils.precision``); nothing here sets the TF32 flags.
 
+``cpu_baseline_fps`` and ``vs_baseline`` are the reference's: where
+``CPU_BASELINE_TORCH.json`` (``tools/measure_cpu_baseline_torch.py``: the same
+pipeline on the CPU) is at the repo's root, its ``cpu_fps`` and ``value`` over
+it; without the file null and ``value / CAMERA_HZ``, as the reference falls
+back. The reference's ``CPU_BASELINE.json`` (a JAX figure) is never read.
+
 Keys of the reference with no counterpart here: ``est_flops_per_frame``,
 ``achieved_tflops`` and ``est_mfu_bf16_peak`` (``_step_flops`` reads XLA's
 cost analysis of one compiled step, and ``_PEAK_FLOPS`` holds TPU peaks);
-``vs_baseline`` and ``cpu_baseline_fps`` (``CPU_BASELINE.json`` is a JAX CPU
-figure of the TPU era, and no TPU figure is a target of the port);
 ``hbm_staged_feed`` (the feed is always staged: ``stage_frames``).
 
 ``--image-size``, ``--max-keypoints`` and ``--hypotheses`` shrink the run for
@@ -63,6 +68,7 @@ PROFILE_GAP_S = 0.05  # idle gap between the profiled calls of a stage
 PROFILE_SESSIONS = 3  # profiler sessions a stage gets for its two counted calls to agree
 # record_function names of a session's four calls: the middle two are counted
 _MARKS = ("vo_stage_first", "vo_stage_counted_a", "vo_stage_counted_b", "vo_stage_last")
+CPU_BASELINE_PATH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "CPU_BASELINE_TORCH.json")
 
 
 def _q(img) -> np.ndarray:
@@ -96,6 +102,33 @@ def _render_rows(calib, poses, n_landmarks: int, seed: int, image_size, noise: f
     return [tuple(_q(im) for im in seq.frame(i)) for i in rows]
 
 
+def cache_path(
+    n_frames: int, n_landmarks: int, seed: int = 0, image_size=None, noise: float = 0.0, cache_dir: str | None = None
+) -> str:
+    """The file ``preload_cached`` reads and writes for a render (the reference's name, in
+    ``cache_dir``; default: the temporary directory). The name does not encode the poses."""
+    sz = "" if image_size is None else f"_{image_size[0]}x{image_size[1]}"
+    nz = "" if noise == 0.0 else f"_n{noise:g}"
+    cache_dir = tempfile.gettempdir() if cache_dir is None else cache_dir
+    return os.path.join(cache_dir, f"longrun_frames_v4_{n_frames}_{n_landmarks}_{seed}{sz}{nz}.npz")
+
+
+def add_noise(frames: list, extra_noise: float, seed: int = 0) -> list:
+    """Deterministic load-time sensor noise on uint8 (left, right) pairs, in place: Gaussian of
+    stddev ``extra_noise`` (in [0, 1] units) from ``np.random.default_rng((seed, i, 2|3))`` for
+    frame ``i``'s left and right image, clipped and rounded back to uint8 (the reference's streams)."""
+    if extra_noise <= 0.0:
+        return frames
+    s = 255.0 * extra_noise
+    for i, (l, r) in enumerate(frames):
+        rl = np.random.default_rng((seed, i, 2))
+        rr = np.random.default_rng((seed, i, 3))
+        ln = np.clip(l.astype(np.float32) + rl.normal(0.0, s, l.shape), 0.0, 255.0)
+        rn = np.clip(r.astype(np.float32) + rr.normal(0.0, s, r.shape), 0.0, 255.0)
+        frames[i] = ((ln + 0.5).astype(np.uint8), (rn + 0.5).astype(np.uint8))
+    return frames
+
+
 def preload_cached(
     calib, poses, n_frames: int, n_landmarks: int, seed: int = 0, image_size=None,
     noise: float = 0.0, extra_noise: float = 0.0, cache_dir: str | None = None, workers: int = 1,
@@ -113,22 +146,8 @@ def preload_cached(
     from .io import synthetic
 
     seq = synthetic.SyntheticSequence(calib, poses, n_landmarks=n_landmarks, seed=seed, image_size=image_size, noise=noise)
-    sz = "" if image_size is None else f"_{image_size[0]}x{image_size[1]}"
-    nz = "" if noise == 0.0 else f"_n{noise:g}"
-    cache_dir = tempfile.gettempdir() if cache_dir is None else cache_dir
-    cache = os.path.join(cache_dir, f"longrun_frames_v4_{n_frames}_{n_landmarks}_{seed}{sz}{nz}.npz")
-
-    def add_noise(pre: Preloaded) -> Preloaded:
-        if extra_noise <= 0.0:
-            return pre
-        s = 255.0 * extra_noise
-        for i, (l, r) in enumerate(pre.frames):
-            rl = np.random.default_rng((seed, i, 2))
-            rr = np.random.default_rng((seed, i, 3))
-            ln = np.clip(l.astype(np.float32) + rl.normal(0.0, s, l.shape), 0.0, 255.0)
-            rn = np.clip(r.astype(np.float32) + rr.normal(0.0, s, r.shape), 0.0, 255.0)
-            pre.frames[i] = ((ln + 0.5).astype(np.uint8), (rn + 0.5).astype(np.uint8))
-        return pre
+    cache = cache_path(n_frames, n_landmarks, seed, image_size, noise, cache_dir)
+    cache_dir = os.path.dirname(cache)
 
     pre = Preloaded.__new__(Preloaded)
     pre.calib, pre.gt_poses = seq.calib, seq.gt_poses
@@ -137,8 +156,8 @@ def preload_cached(
         if "poses" in z and z["poses"].shape == poses.shape and np.allclose(z["poses"], poses):
             # Each npz member is read once: every z["l"] loads a fresh full copy.
             L, R = z["l"], z["r"]
-            pre.frames = [(L[i], R[i]) for i in range(n_frames)]
-            return add_noise(pre)
+            pre.frames = add_noise([(L[i], R[i]) for i in range(n_frames)], extra_noise, seed)
+            return pre
     t0 = time.perf_counter()
     if workers <= 1:
         pre.frames = Preloaded(seq, n_frames).frames
@@ -154,7 +173,8 @@ def preload_cached(
     os.makedirs(cache_dir, exist_ok=True)
     np.savez(cache, l=np.stack([f[0] for f in pre.frames]), r=np.stack([f[1] for f in pre.frames]), poses=poses)
     print(f"# rendered {n_frames} frames in {time.perf_counter() - t0:.1f}s", flush=True)
-    return add_noise(pre)
+    add_noise(pre.frames, extra_noise, seed)
+    return pre
 
 
 def stage_frames(pre, device):
@@ -293,6 +313,14 @@ def stage_breakdown(pre, cfg, device=None, n_iter: int = STAGE_ITERS) -> dict:
     return out
 
 
+def load_cpu_baseline() -> dict | None:
+    """``CPU_BASELINE_PATH``'s payload (tools/measure_cpu_baseline_torch.py), or None where it is missing."""
+    if os.path.exists(CPU_BASELINE_PATH):
+        with open(CPU_BASELINE_PATH) as f:
+            return json.load(f)
+    return None
+
+
 def power_limit_w(device: torch.device):
     """The card's power limit in W as ``nvidia-smi`` reports it; None on the CPU or without nvidia-smi."""
     if device.type != "cuda":
@@ -365,13 +393,16 @@ def main(argv=None) -> int:
         sustained = res_s.frames_per_sec
         sustained_ate = metrics.ate(res_s.poses, gt_s)["rmse"]
 
+    cpu_base = load_cpu_baseline()
     out = {
         "metric": "frames_per_sec",
         "value": fps,
         "unit": "frames/s",
+        "vs_baseline": fps / cpu_base["cpu_fps"] if cpu_base else fps / CAMERA_HZ,
         "vs_realtime": fps / CAMERA_HZ,
         "sustained_fps": sustained,
         "sustained_frames": args.sustained_frames or None,
+        "cpu_baseline_fps": cpu_base["cpu_fps"] if cpu_base else None,
         "ate_rmse_m": metrics.ate(res.poses, gt)["rmse"],
         "n_frames": n,
         "per_frame_ms": float(np.median(ms)),

@@ -3,8 +3,9 @@
 The reference's outer ``for i = 1:n_frames`` (VO.m:64) on its deferred fast
 path: ``cfg.fused_group`` frames per step with detection batched across them,
 a single-frame step for the tail, frames staged on the device as uint8, and
-the per-frame history kept as device tensors and read back once at the end,
-so the host never waits on the device inside the loop.
+the per-frame history (five fields per frame, stacked on the device every
+``HISTORY_CHUNK`` frames, as the reference's ``_DeviceHistory``) read back
+once at the end, so the host never waits on the device inside the loop.
 
 The refined path (``use_ba`` / ``use_loop_closure``) steps one frame at a
 time and hands every ``cfg.ba.keyframe_every``-th frame to the background
@@ -189,31 +190,52 @@ def _host_image(img) -> np.ndarray:
 
 
 _HIST_FIELDS = ("pose_c2w", "rel_pose", "n_inliers", "n_tracks", "pose_ok")
+HISTORY_CHUNK = 128  # device rows stacked into one chunk (the reference's _DeviceHistory chunk)
 
 
 class _History:
     """Per-frame rows (frames >= 1) of a run: rows already on the host (from a checkpoint, or
-    read frame by frame on the non-deferred path) followed by FrameOutputs still on the device."""
+    read frame by frame on the non-deferred path) followed by rows still on the device.
 
-    def __init__(self):
+    A device row keeps the five ``_HIST_FIELDS`` tensors of a frame, never its whole FrameOutput
+    (whose track arrays are most of its bytes), and every ``chunk`` rows are stacked on the
+    device. Nothing here waits for the device until ``stacked``, which reads everything to the
+    host at once and is safe to call mid-run (it closes a partial chunk).
+    """
+
+    def __init__(self, chunk: int = HISTORY_CHUNK):
+        self.chunk = chunk
         self.host: dict = {f: [] for f in _HIST_FIELDS}
-        self.dev: list = []
+        self._pending: list = []  # rows not yet stacked: tuples of the five tensors
+        self._chunks: list = []  # the five fields stacked on the device, one tuple per chunk
 
     def extend_host(self, **rows) -> None:
         for f, r in rows.items():
             self.host[f] += list(r)
 
+    def append(self, out) -> None:
+        """Keep frame output ``out``'s five history fields (device tensors)."""
+        self._pending.append(tuple(getattr(out, f) for f in _HIST_FIELDS))
+        if len(self._pending) >= self.chunk:
+            self._flush()
+
+    def _flush(self) -> None:
+        if self._pending:
+            self._chunks.append(tuple(torch.stack(col) for col in zip(*self._pending)))
+            self._pending = []
+
     def stacked(self) -> dict:
         """{field: np.ndarray over all rows}; waits for the device where rows are still there."""
         dtypes = dict(pose_c2w=np.float32, rel_pose=np.float32, n_inliers=np.int32, n_tracks=np.int32, pose_ok=bool)
         empty = dict(pose_c2w=(0, 4, 4), rel_pose=(0, 4, 4), n_inliers=(0,), n_tracks=(0,), pose_ok=(0,))
+        self._flush()
         out = {}
-        for f in _HIST_FIELDS:
+        for k, f in enumerate(_HIST_FIELDS):
             parts = []
             if self.host[f]:
                 parts.append(np.asarray(self.host[f], dtypes[f]))
-            if self.dev:
-                parts.append(torch.stack([getattr(o, f) for o in self.dev]).cpu().numpy().astype(dtypes[f]))
+            if self._chunks:
+                parts.append(torch.cat([c[k] for c in self._chunks]).cpu().numpy().astype(dtypes[f]))
             out[f] = np.concatenate(parts) if parts else np.zeros(empty[f], dtypes[f])
         return out
 
@@ -293,7 +315,7 @@ def run_sequence(
 
         state = init_state(cfg, seed, device)
         lmap = lm_mod.init_map(cfg.landmarks, device) if insert_landmarks else None
-        hist = _History()
+        hist = _History(HISTORY_CHUNK)
         start_frame = 0
         resumed_refiner_state = None
         if resume and checkpoint_path and os.path.exists(checkpoint_path):
@@ -419,7 +441,7 @@ def run_sequence(
                 if not deferred:
                     host_frame(j, out, state, t_frame)
                 elif j > 0:  # all_poses starts at frame 2 (VO.m:133)
-                    hist.dev.append(out)
+                    hist.append(out)
                 if viz_every and j > 0 and j % viz_every == 0:
                     live_viz(j, out, host_frames[k][0])
             i += g
