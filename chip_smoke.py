@@ -3,6 +3,10 @@
 
     python3 chip_smoke.py
 
+Every run_sequence call below steps through CUDA graphs (utils.graphs: the
+factories of odometry.pipeline, captured in each run's warm-up), except where
+``graph=False`` is named and on the mesh (phases 11-12), which stays eager.
+
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. the card's name and power limit (needs CUDA);
   2. build the hand-written kernels from vo_tpu_torch/csrc with nvcc;
@@ -61,7 +65,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      itself) and phase 4's grouped run within 1e-3. Prints fps beside both
      (the ratio is the cost of one host read per frame) and the percentiles of
      ``frame_ms``, which include that wait; then ``utils.debug`` on the card:
-     the launches per frame of a short deferred run, and a run under ``nan_debug``;
+     the launches per frame of a short deferred run (the replays and the
+     capture's one eager warm-up run), a graphed run under ``nan_debug``, which
+     must raise the ``ValueError`` that names ``graph=False``, and the same run
+     with ``graph=False``, which must stay finite;
   9. the exact-SIFT oracle path (``fast_descriptor=False``): one detection call
      on phase 3's four images must launch K1 once and K2 never, return the fast
      path's keypoints (same masks, xy within 1e-4, one orientation each) and
@@ -127,8 +134,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      candidate, so no loop can close here: the phase fails unless ``vo_lc``
      verified none and equals ``vo``'s ATE within 0.02 m (it steps frame by frame);
      the full run is where closures fire;
+ 15. the captured steps against the eager ones: phase 4's 30-frame run and
+     phase 5's 199-frame refined run (both graphed) against the same runs with
+     ``graph=False``, bit for bit (poses, relative poses, n_inliers, n_tracks,
+     pose_ok, landmarks; the refined keyframes (39), solves and verified
+     candidates equal), ``make_jitted_step`` captured and eager frame by frame
+     (track ids and poses), and phase 7's graphed resumes 0.0 m from the
+     uninterrupted graphed runs. Then one replay of the group step: it must
+     account one launch of each kernel in ``kernels.LAUNCHES``, and in its
+     profiler trace K1 and K2 must have been launched by ``cudaGraphLaunch``;
+     it prints the solver kernels of RANSAC's 6x6 solve, the seconds of the
+     first call of each step (warm-up, capture, instantiation, one replay) and
+     the bytes of the graph pools. Last, per frame of the frame loop, graphed
+     and eager: host launches, device busy ms and launches, idle share (the
+     first 10 frames of the plain feed and the first 20 of the refined one;
+     tools/profile_torch_step.frame_loop_trace);
 The line before the last is a JSON summary of the kernels: ``launches`` summed
-over the counted runs of phases 4, 5, 7, 8, 9, rank 0 of phase 12, 13 and 14 (``launches_by_path`` has each;
+over the counted runs of phases 4, 5, 7, 8, 9, rank 0 of phase 12, 13, 14 and 15's one replay (``launches_by_path`` has each;
 the counters are reset just before each path and read just after), ``max_abs_err`` the largest of the three batches' (``max_abs_err_by_batch`` has
 each), ``ms`` the one-launch detection call of 4 images with cold inputs, ``octave0_ms``, ``per_octave_launches_ms`` and
 ``copy_same_bytes_ms`` timed the same way, ``back_to_back_ms``, ``plain_ms``
@@ -202,7 +224,7 @@ METRICS_KEYS = {"frame", "n_tracks", "n_inliers", "inlier_ratio", "pose_ok", "me
 BENCH_KEYS = {  # phase 13: the port's bench line (vo_tpu_torch/bench.py)
     "metric", "value", "unit", "vs_baseline", "vs_realtime", "sustained_fps", "sustained_frames", "cpu_baseline_fps",
     "ate_rmse_m", "n_frames", "per_frame_ms", "device", "device_kind", "per_frame_ms_runs", "per_frame_ms_min",
-    "per_frame_ms_max", "sustained_ate_rmse_m", "pose_ok_frac", "matmul_precision", "power_limit_w",
+    "per_frame_ms_max", "sustained_ate_rmse_m", "pose_ok_frac", "matmul_precision", "power_limit_w", "graphed",
 }
 BENCH_STAGES = ("detect_describe_x2", "stereo_match", "temporal_track", "triangulate_ransac")
 BENCH_ATE_TOL_M = 1e-6  # phase 13: the bench's run against phase 4's
@@ -211,6 +233,7 @@ SWEEP_EXTRA_NOISE = 0.08  # phase 14: load-time noise on the phase-5 feed (the f
 SMALL_CAPACITY = 16  # phase 14: LoopConfig.max_keyframes
 SMALL_CAPACITY_DECIMATIONS = 3  # phase 14: the reference LoopCloser's for 39 keyframes at capacity 16
 POSE_OK_FRAC_MIN = 0.95  # phase 14
+PROFILE_PLAIN_FRAMES, PROFILE_REFINED_FRAMES = 10, 20  # phase 15: the profiles' first frames of the two feeds
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 KERNELS = {
@@ -620,11 +643,22 @@ def host_paths(feed, cfg: PipelineConfig, device, grouped: runner.RunResult, tmp
     with debug.compile_logging() as log:
         runner.run_sequence(feed, cfg, n_frames=n_dev, device=device, warmup=False)
     with debug.nan_debug():
-        checked = runner.run_sequence(feed, cfg, n_frames=4, device=device, warmup=False)
-    calls = n_dev // cfg.fused_group
+        try:
+            runner.run_sequence(feed, cfg, n_frames=4, device=device, warmup=False)
+        except ValueError as e:
+            refused = "graph=False" in str(e)
+        else:
+            refused = False
+        checked = runner.run_sequence(feed, cfg, n_frames=4, device=device, warmup=False, graph=False)
+    # One detection call per group replayed, one in the eager warm-up run that precedes the capture, and one in
+    # the replay of the runner's warm-up call.
+    calls = n_dev // cfg.fused_group + 2
     if log.hand_written != {k: calls for k in KERNELS} or not log.device_launches or not np.isfinite(checked.poses).all():
         raise AssertionError(f"compile_logging counted {log.hand_written} and {log.device_launches} launches in {n_dev} frames")
-    print(f"    utils.debug: {json.dumps(log.per_frame(n_dev))} over {n_dev} deferred frames; 4 frames under nan_debug stayed finite")
+    if not refused:
+        raise AssertionError("a graphed run under nan_debug did not raise the ValueError that names graph=False")
+    print(f"    utils.debug: {json.dumps(log.per_frame(n_dev))} over {n_dev} deferred graphed frames (the capture's warm-up run "
+          f"included); under nan_debug the graphed run raised and named graph=False, 4 eager frames stayed finite")
 
 
 def _shared_keypoints(a, b, img: int):
@@ -1052,6 +1086,8 @@ def bench_surface(feed5, cfg: PipelineConfig, device, ate4: float, launches_by_p
         raise AssertionError(f"the bench line lacks {sorted(BENCH_KEYS - set(line))}")
     if not (line["ate_rmse_m"] <= ATE_MAX_M and abs(line["ate_rmse_m"] - ate4) <= BENCH_ATE_TOL_M):
         raise AssertionError(f"bench ATE {line['ate_rmse_m']} m against phase 4's {ate4} m")
+    if line["graphed"] is not True:
+        raise AssertionError("the bench did not step through CUDA graphs")
     for st in BENCH_STAGES:
         vals = [stages[f"{st}_{k}"] for k in ("ms", "device_ms", "busy_ms")]
         if not (all(v is not None and np.isfinite(v) for v in vals) and stages[f"{st}_launches"] > 0):
@@ -1132,6 +1168,127 @@ def reference_scale_tools(feed5, cfg: PipelineConfig, device, launches_by_path: 
         raise AssertionError(f"run_configs did not launch both kernels: {launches_by_path['bigrun']}")
 
 
+def launched_by(trace_path: str) -> dict:
+    """{device kernel name: the host calls that launched it} from a chrome trace of torch.profiler: a
+    kernel and the runtime call that launched it share a correlation id."""
+    with open(trace_path) as f:
+        tr = json.load(f)
+    evs = tr["traceEvents"] if isinstance(tr, dict) else tr
+    calls = {e["args"]["correlation"]: e["name"] for e in evs
+             if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in (e.get("args") or {})}
+    out: dict = {}
+    for e in evs:
+        if e.get("cat") == "kernel":
+            out.setdefault(e["name"], set()).add(calls.get((e.get("args") or {}).get("correlation"), "?"))
+    return out
+
+
+def require_bit_equal(a: runner.RunResult, b: runner.RunResult, what: str, fields=("poses", "rel_poses", "n_inliers",
+                      "n_tracks", "pose_ok", "landmarks")) -> None:
+    for k in fields:
+        if not np.array_equal(getattr(a, k), getattr(b, k)):
+            raise AssertionError(f"{what}: {k} differs (max |pose difference| {max_diff(a, b)})")
+
+
+def graphed_against_eager(feed, feed5, cfg: PipelineConfig, device, plain: runner.RunResult, refined: runner.RunResult,
+                          resumed: dict, tmp: str, launches_by_path: dict) -> None:
+    """Phase 15: the captured steps (utils.graphs) against the eager ones, the kernels inside a replay,
+    and what the graphs change in the profile."""
+    from vo_tpu_torch.odometry import landmarks, pipeline
+    from vo_tpu_torch.utils import graphs
+
+    t = time.perf_counter()
+    # (paths: phase 4's and phase 5's runs stepped through CUDA graphs; the same runs eagerly)
+    eager = runner.run_sequence(feed, cfg, device=device, graph=False)
+    require_bit_equal(plain, eager, "plain path, graphed against eager")
+    eager5 = runner.run_sequence(feed5, cfg, use_ba=True, use_loop_closure=True, device=device, graph=False)
+    require_bit_equal(refined, eager5, "refined path, graphed against eager")
+    keys = ("n_keyframes", "ba_solves", "lc_verified", "loops_closed")
+    want_kf = (len(feed5) - 1) // cfg.ba.keyframe_every
+    if [refined.refine_stats[k] for k in keys] != [eager5.refine_stats[k] for k in keys] or refined.refine_stats["n_keyframes"] != want_kf:
+        raise AssertionError(f"refine stats graphed {refined.refine_stats} against eager {eager5.refine_stats}")
+    if any(d != 0.0 for d in resumed.values()):
+        raise AssertionError(f"a graphed resume is not bit-equal to the uninterrupted graphed run: {resumed}")
+    # (track ids, frame by frame: make_jitted_step captured and eager over the 30-frame feed)
+    calib = feed.calib.to(device)
+    ids = {}
+    for g in (None, False):
+        step = pipeline.make_jitted_step(calib, cfg, graph=g)
+        st, rows = pipeline.init_state(cfg, 0, device), []
+        for i in range(len(feed)):
+            st, out = step(st, *feed.frame(i))
+            rows.append(torch.cat([st.prev.ids.float(), out.pose_c2w.flatten(), out.pose_ok.float()[None]]).cpu().numpy())
+        ids[g] = np.stack(rows)
+    if not np.array_equal(ids[None], ids[False]):
+        raise AssertionError("make_jitted_step: track ids or poses differ between the graphed and the eager step")
+
+    # (one replay: the kernels inside it, the launches it accounts, its capture time and the pools' memory)
+    pool = graphs.Pool(device)
+    stepN = pipeline.make_fused_multi_step(calib, cfg, with_landmarks=True, group=cfg.fused_group, pool=pool)
+    step1 = pipeline.make_fused_loop_step(calib, cfg, with_landmarks=True, pool=pool)
+    frames = [im for i in range(cfg.fused_group) for im in feed.frame(i)]
+    torch.cuda.synchronize()
+    t_cap = time.perf_counter()
+    r = stepN(pipeline.init_state(cfg, 0, device), landmarks.init_map(cfg.landmarks, device), *frames)
+    torch.cuda.synchronize()
+    capture_group_s = time.perf_counter() - t_cap
+    t_cap = time.perf_counter()
+    step1(pipeline.init_state(cfg, 0, device), landmarks.init_map(cfg.landmarks, device), *frames[:2])
+    torch.cuda.synchronize()
+    capture_single_s = time.perf_counter() - t_cap
+    pools_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                      if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+    r = counted(launches_by_path, "one_replay", lambda: stepN(r[0], r[1], *frames))
+    if launches_by_path["one_replay"] != {k: 1 for k in KERNELS}:
+        raise AssertionError(f"one replay of the group step accounted {launches_by_path['one_replay']}, expected one launch of each kernel")
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        stepN(r[0], r[1], *frames)
+        torch.cuda.synchronize()
+    trace = os.path.join(tmp, "one_replay.json")
+    prof.export_chrome_trace(trace)
+    by = launched_by(trace)
+    hand = {name: sorted(v) for name, v in by.items() if any(k in name for k in ("extrema_scores_kernel", "bin_maps_kernel"))}
+    if len(hand) != 2 or any(v != ["cudaGraphLaunch"] for v in hand.values()):
+        raise AssertionError(f"K1 and K2 were not launched by cudaGraphLaunch in a replay: {hand}")
+    solver = sorted({n[:80] for n in by if any(k in n.lower() for k in ("getrf", "getrs", "magma", "trsm", "cusolver"))})
+    n_kernels = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(
+        f"[15] graphed against eager: plain {len(feed)} frames and refined {len(feed5)} frames bit-equal (poses, rel poses, "
+        f"n_inliers, n_tracks, pose_ok, landmarks; refined keyframes {refined.refine_stats['n_keyframes']}, solves "
+        f"{refined.refine_stats['ba_solves']}, verified {refined.refine_stats['lc_verified']}); make_jitted_step's track ids "
+        f"and poses equal frame by frame; graphed resumes against uninterrupted graphed runs {json.dumps(resumed)}; "
+        f"eager {eager.per_frame_ms:.3f} ms/frame plain, {eager5.per_frame_ms:.3f} refined, against graphed "
+        f"{plain.per_frame_ms:.3f} and {refined.per_frame_ms:.3f}"
+    )
+    print(
+        f"     one replay of the group step: {n_kernels} device events, K1 and K2 launched by {hand}, the "
+        f"replay accounted {launches_by_path['one_replay']}; the 6x6 solve's kernels {solver}; first call (warm-up "
+        f"+ capture + instantiate + replay) {capture_group_s:.3f} s for the group step, {capture_single_s:.3f} s for "
+        f"the single-frame step; graph pools {pools_bytes} bytes"
+    )
+    del r, stepN, step1
+
+    # (the profile: per frame, host launches, device busy and launches, idle share; graphed and eager)
+    prof_tool = load_tool("profile_torch_step")
+    n4, n5 = PROFILE_PLAIN_FRAMES, PROFILE_REFINED_FRAMES
+    for name, g in (("graphed", None), ("eager", False)):
+        for path, run, n in (
+            ("plain", lambda w=True, g=g: runner.run_sequence(feed, cfg, n_frames=n4, device=device, warmup=w, graph=g), n4),
+            ("refined", lambda w=True, g=g: runner.run_sequence(
+                feed5, cfg, n_frames=n5, use_ba=True, use_loop_closure=True, device=device, warmup=w, graph=g), n5),
+        ):
+            untraced = run()
+            _, loop = prof_tool.frame_loop_trace(lambda: run(w=False), n)
+            loop.pop("kernel_ms_per_frame")
+            row = dict(frames=n, wall_ms_per_frame=untraced.per_frame_ms,
+                       device_idle_share=1.0 - loop["device_busy_ms_per_frame"] / untraced.per_frame_ms, **loop)
+            print(f"     profile, {path} {name} ({n} frames): {json.dumps(row)}")
+    print(f"     phase 15 took {time.perf_counter() - t:.1f} s")
+
+
 def main() -> int:
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1203,6 +1360,9 @@ def main() -> int:
         shared_card_mesh(feed, feed5, cfg, device, res, np.asarray(seq.gt_poses), tmp, launches_by_path)
     bench_surface(feed5, cfg, device, ate["rmse"], launches_by_path)
     reference_scale_tools(feed5, cfg, device, launches_by_path)
+    with tempfile.TemporaryDirectory() as tmp:
+        resumed = {"refined": found["resumed_diff"], "plain": plain_found["resumed_diff"]}
+        graphed_against_eager(feed, feed5, cfg, device, res, refined, resumed, tmp, launches_by_path)
     launches = {k: sum(v[k] for v in launches_by_path.values()) for k in KERNELS}
 
     summary = [

@@ -33,7 +33,7 @@ SMALL = ["--image-size", "94,310", "--max-keypoints", "128", "--hypotheses", "64
 KEYS = {
     "metric", "value", "unit", "vs_baseline", "vs_realtime", "sustained_fps", "sustained_frames", "cpu_baseline_fps",
     "ate_rmse_m", "n_frames", "per_frame_ms", "device", "device_kind", "per_frame_ms_runs", "per_frame_ms_min",
-    "per_frame_ms_max", "sustained_ate_rmse_m", "pose_ok_frac", "matmul_precision", "power_limit_w",
+    "per_frame_ms_max", "sustained_ate_rmse_m", "pose_ok_frac", "matmul_precision", "power_limit_w", "graphed",
 }
 NO_COUNTERPART = {"est_flops_per_frame", "achieved_tflops", "est_mfu_bf16_peak", "hbm_staged_feed"}
 REF_STAGE_KEYS = {"detect_describe_x2_ms", "stereo_match_ms", "temporal_track_ms", "triangulate_ransac_ms", "sum_ms", "note"}
@@ -240,6 +240,7 @@ def test_main_prints_one_json_line(capsys):
     assert out["sustained_fps"] is None and out["sustained_frames"] is None and out["power_limit_w"] is None
     assert np.isfinite(out["ate_rmse_m"]) and out["ate_rmse_m"] < 0.05 and out["pose_ok_frac"] == 1.0
     assert out["matmul_precision"] == "float32"
+    assert out["graphed"] is False  # the CPU runs the eager step
 
 
 def test_bench_subcommand_exits_0():

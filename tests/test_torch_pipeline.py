@@ -175,7 +175,8 @@ def test_runner_takes_every_reference_option():
 
     ref = inspect.signature(r_runner.run_sequence).parameters
     port = inspect.signature(p_runner.run_sequence).parameters
-    assert list(port)[: len(ref)] == list(ref) and set(port) - set(ref) == {"device"}
+    # The port adds the device and whether the step runs as a captured CUDA graph.
+    assert list(port)[: len(ref)] == list(ref) and set(port) - set(ref) == {"device", "graph"}
     for k in ref:
         assert port[k].default == ref[k].default, k
     assert p_runner.KITTI_DT == r_runner.KITTI_DT

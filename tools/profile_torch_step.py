@@ -1,7 +1,7 @@
 """Where the PyTorch/CUDA port's main path spends its time on one CUDA card.
 
-    python tools/profile_torch_step.py [--frames 30]
-    python tools/profile_torch_step.py --refined
+    python tools/profile_torch_step.py [--frames 30] [--eager]
+    python tools/profile_torch_step.py --refined [--eager]
     python tools/profile_torch_step.py --exact
     python tools/profile_torch_step.py --mesh 1,2 [--ba]
 
@@ -12,7 +12,11 @@ the default PipelineConfig. Prints, with the card's name and power limit:
 - the untraced run: ms/frame and fps (host clock around a synchronised run);
 - the same run under torch.profiler: device busy ms/frame (sum of kernel and
   copy times on the card; one stream, so they do not overlap), the device's
-  idle share (1 - busy / untraced wall), launches per frame, and the kernels
+  idle share (1 - busy / untraced wall), device launches per frame (kernels,
+  copies and fills that ran on the card), host launches per frame (the
+  launching calls the host made: ``cudaLaunchKernel``, ``cudaGraphLaunch``,
+  ``cudaMemcpyAsync`` and the like; one replay of a captured step is one
+  ``cudaGraphLaunch`` however many kernels it runs), and the kernels
   that take the most device time, with the two hand-written kernels named
   (K1 extrema_scores, K2 bin_maps) whatever their rank;
 - per stage of one 2-frame group (batched detection, each frame's _step_core,
@@ -22,6 +26,9 @@ the default PipelineConfig. Prints, with the card's name and power limit:
 - what detection's device time is made of: K1 (one launch over the pyramid),
   the per-octave torch.topk over [4, 3*H*W] that follows K1, and K2 (one
   launch), each run alone on the detection batch's pyramid.
+
+On the card the runner steps through captured CUDA graphs (utils.graphs);
+``--eager`` profiles the eager step (``graph=False``) instead.
 
 With ``--refined`` it profiles the refined path instead
 (run_sequence(use_ba=True, use_loop_closure=True) over chip_smoke.py's
@@ -48,7 +55,7 @@ the two ms/frame figures is the overhead of the integration on one shared
 card and says nothing about a card per rank.
 
 The summary is also written as JSON to chiprun_out/profile_torch_step.json
-(profile_torch_step_refined.json with ``--refined``, profile_torch_step_exact.json
+(``_eager`` before ``.json`` with ``--eager``; profile_torch_step_refined.json with ``--refined``, profile_torch_step_exact.json
 with ``--exact``, profile_torch_step_mesh.json with ``--mesh``).
 """
 from __future__ import annotations
@@ -78,6 +85,11 @@ from vo_tpu_torch.odometry import landmarks, pipeline, runner  # noqa: E402
 
 # Device kernel names of the hand-written kernels (csrc/*.cu), as the profiler reports them.
 HAND_WRITTEN = {"extrema_scores_kernel": "K1 extrema_scores", "bin_maps_kernel": "K2 bin_maps"}
+# The host's launching calls, as the profiler names the CUDA runtime and driver calls.
+HOST_LAUNCH_CALLS = {
+    "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+    "cudaMemcpyAsync", "cudaMemsetAsync", "cudaMemcpy", "cudaMemset",
+}
 
 
 def hand_written_ms(by_name) -> dict:
@@ -101,6 +113,32 @@ def traced(fn, reps: int):
     for e in evs:
         by_name[e.name] += e.time_range.elapsed_us() / 1000.0 / reps
     return union_ms(evs) / reps, len(evs) / reps, by_name
+
+
+def frame_loop_trace(run, n_frames: int):
+    """run() (a run_sequence call) under torch.profiler -> (its result, per-frame figures of its frame
+    loop: device busy ms (the union over streams), device launches, host launches and the calls
+    among them). Only the span ``runner.FRAME_LOOP`` counts: the warm-up and the capture before it
+    are left out, and so is the device work queued before the span began."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        res = run()
+        torch.cuda.synchronize()
+    evs = prof.events()
+    span = next(e.time_range for e in evs if e.name == runner.FRAME_LOOP and e.device_type != torch.autograd.DeviceType.CUDA)
+    dev = [e for e in evs if e.device_type == torch.autograd.DeviceType.CUDA and e.name != runner.FRAME_LOOP
+           and e.time_range.start >= span.start]
+    host = collections.Counter(e.name for e in evs if e.name in HOST_LAUNCH_CALLS and span.start <= e.time_range.start <= span.end)
+    by_name = collections.Counter()
+    for e in dev:
+        by_name[e.name] += e.time_range.elapsed_us() / 1000.0 / n_frames
+    return res, dict(
+        device_busy_ms_per_frame=union_ms(dev) / n_frames,
+        device_launches_per_frame=len(dev) / n_frames,
+        host_launches_per_frame=sum(host.values()) / n_frames,
+        host_launch_calls_per_frame={k: v / n_frames for k, v in sorted(host.items())},
+        kernel_ms_per_frame=by_name,
+    )
 
 
 def union_ms(evs) -> float:
@@ -133,6 +171,7 @@ def main() -> int:
     ap.add_argument("--exact", action="store_true", help="profile a detection call on the exact-SIFT path")
     ap.add_argument("--mesh", default=None, metavar="DATA,MODEL", help="profile run_sequence(mesh=) on ranks sharing the card over gloo")
     ap.add_argument("--ba", action="store_true", help="with --mesh: window BA on (the worker's collectives too)")
+    ap.add_argument("--eager", action="store_true", help="profile the eager step (graph=False), not the captured graphs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_step: needs a CUDA card", file=sys.stderr)
@@ -144,8 +183,9 @@ def main() -> int:
     ).stdout.strip()
     print(card)
     cfg = PipelineConfig()
+    graph = False if args.eager else None
     if args.refined:
-        return profile_refined(cfg, dev, card)
+        return profile_refined(cfg, dev, card, graph)
     if args.exact:
         return profile_exact(cfg, dev, card, args.reps)
     if args.mesh:
@@ -153,27 +193,30 @@ def main() -> int:
     seq = synthetic.kitti_synthetic_sequence(n_frames=args.frames, n_landmarks=6000, seed=0)
     feed = runner.StagedSequence(seq, args.frames, dev)
 
-    runner.run_sequence(feed, cfg, device=dev)  # warm: build, allocator, library handles
-    res = runner.run_sequence(feed, cfg, device=dev, warmup=False)
-    busy, launches, by_name = traced(lambda: runner.run_sequence(feed, cfg, device=dev, warmup=False), 1)
+    runner.run_sequence(feed, cfg, device=dev, graph=graph)  # warm: build, allocator, library handles
+    res = runner.run_sequence(feed, cfg, device=dev, warmup=False, graph=graph)
     n = args.frames
+    _, loop = frame_loop_trace(lambda: runner.run_sequence(feed, cfg, device=dev, warmup=False, graph=graph), n)
+    by_name = loop.pop("kernel_ms_per_frame")
     summary = dict(
         card=card,
         frames=n,
+        graphed=graph is None,
         wall_ms_per_frame=res.per_frame_ms,
         fps=res.frames_per_sec,
-        device_busy_ms_per_frame=busy / n,
-        device_idle_share=1.0 - (busy / n) / res.per_frame_ms,
-        launches_per_frame=launches / n,
-        top_kernels_ms_per_frame={k: v / n for k, v in by_name.most_common(12)},
-        hand_written_ms_per_frame={k: v / n for k, v in hand_written_ms(by_name).items()},
+        device_idle_share=1.0 - loop["device_busy_ms_per_frame"] / res.per_frame_ms,
+        **loop,
+        top_kernels_ms_per_frame=dict(by_name.most_common(12)),
+        hand_written_ms_per_frame=hand_written_ms(by_name),
     )
     print(
-        f"main path: {res.per_frame_ms:.3f} ms/frame ({res.frames_per_sec:.2f} fps) untraced; device busy "
-        f"{busy / n:.3f} ms/frame, idle share {summary['device_idle_share']:.3f}, {launches / n:.0f} launches/frame"
+        f"main path ({'graphed' if graph is None else 'eager'}): {res.per_frame_ms:.3f} ms/frame ({res.frames_per_sec:.2f} fps) "
+        f"untraced; device busy {loop['device_busy_ms_per_frame']:.3f} ms/frame, idle share {summary['device_idle_share']:.3f}, "
+        f"{loop['device_launches_per_frame']:.0f} device launches/frame, {loop['host_launches_per_frame']:.1f} host "
+        f"launches/frame {loop['host_launch_calls_per_frame']}"
     )
     for k, v in by_name.most_common(12):
-        print(f"  {v / n:8.4f} ms/frame  {k[:110]}")
+        print(f"  {v:8.4f} ms/frame  {k[:110]}")
     for k, v in summary["hand_written_ms_per_frame"].items():
         print(f"  {v:8.4f} ms/frame  {k} (hand-written)")
 
@@ -215,7 +258,7 @@ def main() -> int:
         for k, v in by.most_common(4):
             print(f"    {v:8.4f} ms  {k[:100]}")
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "profile_torch_step.json"), "w") as f:
+    with open(os.path.join("chiprun_out", "profile_torch_step" + ("_eager" if args.eager else "") + ".json"), "w") as f:
         json.dump(summary, f, indent=1)
     return 0
 
@@ -341,41 +384,44 @@ def profile_mesh(cfg: PipelineConfig, dev, card: str, shape, n: int, use_ba: boo
     return 0
 
 
-def profile_refined(cfg: PipelineConfig, dev, card: str) -> int:
+def profile_refined(cfg: PipelineConfig, dev, card: str, graph) -> int:
     from chip_smoke import OUT_FRAMES, OutAndBackFeed
 
     feed = OutAndBackFeed(OUT_FRAMES, dev)
     n = len(feed)
 
     def run(warmup=True):
-        return runner.run_sequence(feed, cfg, use_ba=True, use_loop_closure=True, device=dev, warmup=warmup)
+        return runner.run_sequence(feed, cfg, use_ba=True, use_loop_closure=True, device=dev, warmup=warmup, graph=graph)
 
     run()  # warm
     res = run()
-    busy, launches, by_name = traced(lambda: run(warmup=False), 1)
+    _, loop = frame_loop_trace(lambda: run(warmup=False), n)
+    by_name = loop.pop("kernel_ms_per_frame")
     summary = dict(
         card=card,
         frames=n,
+        graphed=graph is None,
         wall_ms_per_frame=res.per_frame_ms,
         fps=res.frames_per_sec,
         refine_stats=res.refine_stats,
-        device_busy_ms_per_frame=busy / n,
-        device_idle_share=1.0 - (busy / n) / res.per_frame_ms,
-        launches_per_frame=launches / n,
-        top_kernels_ms_per_frame={k: v / n for k, v in by_name.most_common(12)},
-        hand_written_ms_per_frame={k: v / n for k, v in hand_written_ms(by_name).items()},
+        device_idle_share=1.0 - loop["device_busy_ms_per_frame"] / res.per_frame_ms,
+        **loop,
+        top_kernels_ms_per_frame=dict(by_name.most_common(12)),
+        hand_written_ms_per_frame=hand_written_ms(by_name),
     )
     print(
-        f"refined path: {res.per_frame_ms:.3f} ms/frame ({res.frames_per_sec:.2f} fps) untraced; device busy "
-        f"{busy / n:.3f} ms/frame, idle share {summary['device_idle_share']:.3f}, {launches / n:.0f} launches/frame"
+        f"refined path ({'graphed' if graph is None else 'eager'}): {res.per_frame_ms:.3f} ms/frame ({res.frames_per_sec:.2f} fps) "
+        f"untraced; device busy {loop['device_busy_ms_per_frame']:.3f} ms/frame (both streams), idle share "
+        f"{summary['device_idle_share']:.3f}, {loop['device_launches_per_frame']:.0f} device launches/frame, "
+        f"{loop['host_launches_per_frame']:.1f} host launches/frame (both threads) {loop['host_launch_calls_per_frame']}"
     )
     print(f"refine_stats {json.dumps(res.refine_stats, sort_keys=True)}")
     for k, v in by_name.most_common(12):
-        print(f"  {v / n:8.4f} ms/frame  {k[:110]}")
+        print(f"  {v:8.4f} ms/frame  {k[:110]}")
     for k, v in summary["hand_written_ms_per_frame"].items():
         print(f"  {v:8.4f} ms/frame  {k} (hand-written)")
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "profile_torch_step_refined.json"), "w") as f:
+    with open(os.path.join("chiprun_out", "profile_torch_step_refined" + ("" if graph is None else "_eager") + ".json"), "w") as f:
         json.dump(summary, f, indent=1)
     # After tracing the refiner's second thread and stream, the interpreter's
     # exit hung until the call's time limit on the H100 (torch 2.11): leave

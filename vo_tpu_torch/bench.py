@@ -1,13 +1,14 @@
 """Headline benchmark: end-to-end VO frames/s on KITTI-resolution stereo (port of the root ``bench.py``).
 
-    python -m vo_tpu_torch bench [--repeats 5] [--stages] [--precision float32|default] [--cpu]
+    python -m vo_tpu_torch bench [--repeats 5] [--stages] [--precision float32|default] [--eager] [--cpu]
     python bench_torch.py ...            (the same, from the repo's root)
 
 Runs ``odometry.runner.run_sequence`` at the default ``PipelineConfig`` (full
 width, 376x1241, ``fused_group`` 2) over the synthetic KITTI-00 feed (the
 committed calib and GT poses, rendered textures, 30 frames, 6000 landmarks,
 seed 0) staged on the device as uint8, on the current CUDA card unless
-``--cpu`` is given (no card and no ``--cpu``: the ``RuntimeError`` of
+``--cpu`` is given. On the card each step is a captured CUDA graph
+(utils.graphs); ``--eager`` runs the eager step (``graph=False``) (no card and no ``--cpu``: the ``RuntimeError`` of
 ``utils.device.default_device``). One warm run, then ``--repeats`` timed runs;
 then the sustained pass, one timed run over ``--sustained-frames`` fresh
 frames (KITTI-00 GT poses 0..N-1, 9000 landmarks, through the
@@ -19,8 +20,9 @@ missing and the port runs from the committed poses. Prints ONE JSON line:
   sustained_frames, cpu_baseline_fps, ate_rmse_m, n_frames, per_frame_ms
   (median) -- the reference's keys; and the port's:
   per_frame_ms_runs (every timed run), per_frame_ms_min, per_frame_ms_max,
-  sustained_ate_rmse_m, pose_ok_frac, matmul_precision, device,
-  device_kind, power_limit_w (``nvidia-smi``; null where there is none).
+  sustained_ate_rmse_m, pose_ok_frac, matmul_precision, graphed (whether the
+  steps ran as CUDA graphs), device, device_kind, power_limit_w
+  (``nvidia-smi``; null where there is none).
 
 ``--stages`` prints a second line, ``{"stage_breakdown": {...}}``: the
 reference's four stages called apart on frame 1 (``stage_breakdown``).
@@ -279,6 +281,7 @@ def stage_breakdown(pre, cfg, device=None, n_iter: int = STAGE_ITERS) -> dict:
     from .frontend.track import stereo_features_with_matches, track
     from .geom.triangulate import triangulate_rectified
     from .pose.ransac import estimate_world_pose
+    from .utils import graphs
     from .utils.device import resolve
     from .utils.padding import gather_rows
     from .utils.precision import matmul_precision
@@ -345,6 +348,7 @@ def main(argv=None) -> int:
     )
     ap.add_argument("--repeats", type=int, default=REPEATS, help="timed runs after the warm run (median reported)")
     ap.add_argument("--precision", choices=("default", "float32"), default=None, help="cfg.matmul_precision (utils.precision)")
+    ap.add_argument("--eager", action="store_true", help="run the eager step, not the captured CUDA graphs")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU (default: the current CUDA device)")
     ap.add_argument("--image-size", default=None, metavar="H,W", help="render the feeds at H,W (CPU tests)")
     ap.add_argument("--max-keypoints", type=int, default=None, help="SIFT capacity (CPU tests)")
@@ -357,6 +361,7 @@ def main(argv=None) -> int:
     from .eval import metrics
     from .io import kitti, synthetic
     from .odometry import runner
+    from .utils import graphs
     from .utils.device import resolve
 
     device = resolve("cpu" if args.cpu else None)  # the card unless --cpu; never the CPU unasked
@@ -374,9 +379,10 @@ def main(argv=None) -> int:
     pre = Preloaded(seq, n)
     feed = stage_frames(pre, device)
     gt = np.asarray(seq.gt_poses)
+    graph = False if args.eager else None
     # Warm run: first-use costs (kernel build, library handles, allocator growth) land here.
-    runner.run_sequence(feed, cfg, n_frames=n, device=device)
-    runs = [runner.run_sequence(feed, cfg, n_frames=n, device=device) for _ in range(args.repeats)]
+    runner.run_sequence(feed, cfg, n_frames=n, device=device, graph=graph)
+    runs = [runner.run_sequence(feed, cfg, n_frames=n, device=device, graph=graph) for _ in range(args.repeats)]
     res = runs[0]
     ms = [r.per_frame_ms for r in runs]
     fps = float(np.median([r.frames_per_sec for r in runs]))
@@ -389,7 +395,7 @@ def main(argv=None) -> int:
             kitti.load_stereo_calib(os.path.join(root, "00")), gt_s, args.sustained_frames, SUSTAINED_LANDMARKS,
             seed=0, image_size=size, workers=min(8, os.cpu_count() or 1),
         )
-        res_s = runner.run_sequence(stage_frames(pre_s, device), cfg, n_frames=args.sustained_frames, device=device)
+        res_s = runner.run_sequence(stage_frames(pre_s, device), cfg, n_frames=args.sustained_frames, device=device, graph=graph)
         sustained = res_s.frames_per_sec
         sustained_ate = metrics.ate(res_s.poses, gt_s)["rmse"]
 
@@ -412,6 +418,7 @@ def main(argv=None) -> int:
         "sustained_ate_rmse_m": sustained_ate,
         "pose_ok_frac": float(res.pose_ok.mean()) if res.pose_ok.size else None,
         "matmul_precision": cfg.matmul_precision,
+        "graphed": graphs.wanted(graph, device),
         "device": device.type,
         "device_kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "power_limit_w": power_limit_w(device),

@@ -13,6 +13,9 @@ Each kernel takes every octave of a detection call in ONE launch
 Each wrapper takes its plain PyTorch version only for tensors on the CPU; for
 CUDA tensors it launches the kernel on the current stream or raises. ``LAUNCHES``
 counts the launches of each kernel (a call over several octaves is one launch).
+A call made while the current stream is being captured into a CUDA graph
+enqueues nothing: it is counted in ``CAPTURED`` instead, and the graph adds
+what it captured to ``LAUNCHES`` each time it is replayed (utils.graphs).
 """
 from __future__ import annotations
 
@@ -37,6 +40,8 @@ MAX_OCTAVES = 8  # octaves one launch takes (kMaxOctaves in csrc/*.cu)
 
 # Kernel launches since the last reset_launches(), by wrapper name.
 LAUNCHES = {"extrema_scores": 0, "bin_maps": 0}
+# Calls recorded into a CUDA graph under capture (never reset: utils.graphs reads the difference).
+CAPTURED = {"extrema_scores": 0, "bin_maps": 0}
 
 _lib = None
 
@@ -142,6 +147,11 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed with cudaError_t {err}")
 
 
+def _count(name: str) -> None:
+    """One launch of ``name``'s kernel, or one call recorded into a graph under capture."""
+    (CAPTURED if torch.cuda.is_current_stream_capturing() else LAUNCHES)[name] += 1
+
+
 # ---------------------------------------------------------------------------
 # K1: extrema scores
 # ---------------------------------------------------------------------------
@@ -186,7 +196,7 @@ def extrema_scores_octaves(dogs, thr: float, border: int = 5) -> list:
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "extrema_scores")
-    LAUNCHES["extrema_scores"] += 1
+    _count("extrema_scores")
     return outs
 
 
@@ -258,7 +268,7 @@ def bin_maps_octaves(levels) -> list:
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "bin_maps")
-    LAUNCHES["bin_maps"] += 1
+    _count("bin_maps")
     return outs
 
 

@@ -27,7 +27,6 @@ import numpy as np
 import torch
 
 from ..config import SIFTConfig
-from ..utils.host_copy import upload
 from . import dense_desc, kernels
 from .pyramid import Pyramid, _const, build_pyramid, gradients, sigma_schedule
 
@@ -332,6 +331,12 @@ def _two_peaks(hist: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Te
     return theta1, theta[..., 1], has2
 
 
+def _octave_table(kind: str, hs, ws, offsets, device) -> torch.Tensor:
+    """[3, n_octaves] int64 (heights, widths, row offsets) on ``device``: a per-shape device constant,
+    copied once, so that a step captured into a CUDA graph reads no host buffer."""
+    return _const((kind, tuple(hs), tuple(ws), tuple(offsets)), lambda: np.asarray([hs, ws, offsets], np.int64), device)
+
+
 def detect_and_describe(img: torch.Tensor, cfg: SIFTConfig) -> Features:
     """Detector + descriptor for a [B, H, W] batch -> Features with [B, max_keypoints] sets
     (``cfg.fast_descriptor``: the dense-map descriptor, else the Lowe-exact oracle path)."""
@@ -358,7 +363,7 @@ def detect_and_describe(img: torch.Tensor, cfg: SIFTConfig) -> Features:
             H2s.append(H2)
             W2s.append(W2)
         maps_flat = torch.cat(rows, dim=1)  # [B, N, 8]
-        H2_t, W2_t, off_t = upload(torch.tensor([H2s, W2s, oct_off]), dev)
+        H2_t, W2_t, off_t = _octave_table("bin_rows", H2s, W2s, oct_off, dev)
 
         def derived(sl):
             lvl0 = torch.clamp(sl.lvl - 1, 0, s - 1)
@@ -390,7 +395,7 @@ def detect_and_describe(img: torch.Tensor, cfg: SIFTConfig) -> Features:
             GWs.append(G.shape[3])
         gx_flat = torch.cat(gx_rows, dim=1)  # [B, N]
         gy_flat = torch.cat(gy_rows, dim=1)
-        GH_t, GW_t, off_t = upload(torch.tensor([GHs, GWs, oct_off]), dev)
+        GH_t, GW_t, off_t = _octave_table("grad_rows", GHs, GWs, oct_off, dev)
 
         def hists(sl):
             return _orientation_hist_one(

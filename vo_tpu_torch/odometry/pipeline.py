@@ -7,6 +7,13 @@ Static shapes and masks throughout; the first frame falls out of the mask
 algebra (an empty previous set tracks nothing), and a failed pose falls back
 to constant velocity. Frame-dependent choices are ``torch.where`` on device
 tensors, so the step never waits on the device.
+
+The reference's three factories (``make_jitted_step``, ``make_fused_loop_step``,
+``make_fused_multi_step``) compile the step into one device program per frame
+or per group. Their counterparts here return the eager step on the CPU and,
+on a CUDA device, the step recorded into one CUDA graph per frame shape
+(utils.graphs): its state, map, frames and outputs live in static buffers, and
+the next call overwrites what a call returned.
 """
 from __future__ import annotations
 
@@ -24,9 +31,12 @@ from ..geom import se3
 from ..geom.camera import StereoCalib
 from ..geom.triangulate import triangulate_rectified
 from ..pose.ransac import estimate_world_pose
+from ..utils import graphs
 from ..utils.debug import check_finite
 from ..utils.device import resolve
 from ..utils.padding import gather_rows
+from ..utils.precision import matmul_precision
+from . import landmarks as lm_mod
 
 
 class VOState(NamedTuple):
@@ -268,3 +278,128 @@ def vo_step(
     if return_feats:
         return state, out, (feats_l.xy, feats_l.desc, feats_l.mask)
     return state, out
+
+
+def _compiled(fn, calib: StereoCalib, graph, pool, mesh=None):
+    """``fn(carry, *frames) -> (carry, outputs)`` as a factory's step ``step(carry, frames)``: the eager
+    function where ``graphs.wanted`` says so for ``calib``'s device, else one ``graphs.StaticStep``
+    per shape of the frames. A mesh step stays eager; ``graph=True`` with a mesh raises."""
+    if mesh is not None:
+        if graph:
+            raise ValueError("graph=True with a mesh: the mesh step runs eagerly (its collectives are not captured)")
+        graph = False
+    if not graphs.wanted(graph, calib.P1.device):
+        return lambda carry, frames: fn(carry, *frames)
+    pool = pool if pool is not None else graphs.Pool(calib.P1.device)
+    by_shape: dict = {}
+
+    def step(carry, frames):
+        key = tuple((f.shape, f.dtype) for f in frames)
+        s = by_shape.get(key)
+        if s is None:
+            s = by_shape[key] = graphs.StaticStep(fn, carry, frames, calib.P1.device, pool)
+        return s(carry, frames)
+
+    return step
+
+
+def make_jitted_step(calib: StereoCalib, cfg: PipelineConfig, precision: str | None = None, graph=None, pool=None):
+    """The per-frame step, ``step(state, left, right) -> (state, out)`` (reference: the same name).
+
+    There is no ``key``: RANSAC draws from ``state.gen``. ``precision``
+    (default cfg.matmul_precision) names the matmul precision of the step;
+    every name is float32 on the card (utils.precision). ``graph``: None
+    captures on a CUDA device and runs eagerly on the CPU, False is the eager
+    step, True on the CPU raises (utils.graphs). Captured, the returned state
+    and output are the step's static buffers; ``pool`` (a ``graphs.Pool``)
+    shares one graph memory pool between steps.
+    """
+    precision = cfg.matmul_precision if precision is None else precision
+
+    def fn(state, left, right):
+        with matmul_precision(precision):
+            return vo_step(state, left, right, calib, cfg)
+
+    step = _compiled(fn, calib, graph, pool)
+    return lambda state, left, right: step(state, (left, right))
+
+
+def make_fused_loop_step(
+    calib: StereoCalib,
+    cfg: PipelineConfig,
+    precision: str | None = None,
+    with_landmarks: bool = False,
+    mesh=None,
+    with_query_feats: bool = False,
+    graph=None,
+    pool=None,
+):
+    """ONE step per frame for the frame loop, the landmark insert folded in (reference: the same name).
+
+    Returns ``step(state, lmap, left, right) -> (state, lmap, out)``; pass
+    ``lmap=None`` when ``with_landmarks=False``. The map is updated in place
+    (the reference donates it); captured, the step inserts into its own static
+    map, which it returns. ``with_query_feats`` appends the full left
+    detection set ``(xy, desc, mask)`` (the loop-closure query side). ``mesh``
+    runs the step distributed (``vo_step``), always eagerly: ``graph=True``
+    with a mesh raises. ``precision``, ``graph`` and ``pool`` as in
+    ``make_jitted_step``.
+    """
+    precision = cfg.matmul_precision if precision is None else precision
+
+    def fn(carry, left, right):
+        state, lmap = carry
+        with matmul_precision(precision):
+            r = vo_step(state, left, right, calib, cfg, return_feats=with_query_feats, mesh=mesh)
+            state, out = r[0], r[1]
+            if with_landmarks:
+                lmap = lm_mod.insert(lmap, out.new_lm_l_px, out.new_lm_r_px, out.new_lm_mask, out.pose_c2w, calib, cfg.landmarks)
+        return (state, lmap), ((out, r[2]) if with_query_feats else (out,))
+
+    step = _compiled(fn, calib, graph, pool, mesh)
+
+    def loop_step(state, lmap, left, right):
+        (state, lmap), outs = step((state, lmap), (left, right))
+        return (state, lmap, *outs)
+
+    return loop_step
+
+
+def make_fused_multi_step(
+    calib: StereoCalib,
+    cfg: PipelineConfig,
+    precision: str | None = None,
+    with_landmarks: bool = False,
+    group: int = 2,
+    graph=None,
+    pool=None,
+):
+    """``group`` frames per step, detection batched across all of them (reference: the same name).
+
+    Returns ``stepN(state, lmap, l0, r0, ..., l{g-1}, r{g-1}) -> (state, lmap,
+    out0, ..., out{g-1})``: ``vo_step_multi`` and, with ``with_landmarks``,
+    each frame's insert. ``precision``, ``graph`` and ``pool`` as in
+    ``make_jitted_step``.
+    """
+    precision = cfg.matmul_precision if precision is None else precision
+
+    def fn(carry, *frames):
+        state, lmap = carry
+        with matmul_precision(precision):
+            state, outs = vo_step_multi(state, frames, calib, cfg)
+            if with_landmarks:
+                for out in outs:
+                    lmap = lm_mod.insert(
+                        lmap, out.new_lm_l_px, out.new_lm_r_px, out.new_lm_mask, out.pose_c2w, calib, cfg.landmarks
+                    )
+        return (state, lmap), tuple(outs)
+
+    step = _compiled(fn, calib, graph, pool)
+
+    def stepN(state, lmap, *frames):
+        if len(frames) != 2 * group:
+            raise ValueError(f"expected {2 * group} images (a left and a right per frame of the group), got {len(frames)}")
+        (state, lmap), outs = step((state, lmap), frames)
+        return (state, lmap, *outs)
+
+    return stepN

@@ -7,6 +7,15 @@ the per-frame history (five fields per frame, stacked on the device every
 ``HISTORY_CHUNK`` frames, as the reference's ``_DeviceHistory``) read back
 once at the end, so the host never waits on the device inside the loop.
 
+On a CUDA device every step goes through the factories of odometry.pipeline
+as a captured CUDA graph (utils.graphs; ``graph=False`` runs the eager step):
+``make_fused_multi_step`` for the groups, ``make_fused_loop_step`` for the
+tail, the per-frame host path and the refined path. Both share one graph
+memory pool and are captured in the warm-up, on a throwaway state and map,
+before the refiner's thread starts; the run's state and map then live in the
+steps' static buffers, and every row the runner keeps of a step's outputs is
+a copy, because the next replay overwrites them.
+
 The refined path (``use_ba`` / ``use_loop_closure``) steps one frame at a
 time and hands every ``cfg.ba.keyframe_every``-th frame to the background
 refiner (odometry.refiner); with BA, the new keyframe's descriptors are first
@@ -54,6 +63,8 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from ..config import PipelineConfig
 from ..frontend.match import match
+from ..frontend.track import StereoFeatures
+from ..utils import graphs
 from ..utils.device import resolve
 from ..utils.host_copy import HostCopy, upload
 from ..utils.precision import matmul_precision
@@ -61,10 +72,11 @@ from ..utils.profiling import MetricsLog, pretty_frame
 from . import landmarks as lm_mod
 from . import checkpoint as ckpt_mod
 from .correction import reanchor_trajectory, rebuild_rel_poses
-from .pipeline import init_state, vo_step, vo_step_multi
+from .pipeline import init_state, make_fused_loop_step, make_fused_multi_step
 
 
 KITTI_DT = 0.10374  # mean frame period of kitti/00/times.txt (~9.6 Hz)
+FRAME_LOOP = "vo_tpu_torch.frame_loop"  # torch.profiler span of run_sequence's timed loop
 
 
 @dataclasses.dataclass
@@ -171,9 +183,13 @@ class _Keyframes:
         return slot, torch.stack([m.a_idx for m in ms]), torch.stack([m.b_idx for m in ms]), torch.stack([m.mask for m in ms])
 
     def submit(self, i: int, state, out, query) -> None:
-        # state.prev now holds THIS frame's stereo features + track ids.
-        assoc = self._associate(state.prev.l_desc, state.prev.mask) if self.use_ba else None
-        self.refiner.submit(i, out.pose_c2w, state.prev, assoc=assoc, query=query)
+        # state.prev now holds THIS frame's stereo features + track ids. The job keeps device
+        # tensors that the worker reads later, on its own stream, and a captured step's next
+        # replay overwrites its static buffers: the refiner gets copies, made on this stream.
+        prev = StereoFeatures(*(t.clone() for t in state.prev))
+        query = tuple(t.clone() for t in query) if query is not None else None
+        assoc = self._associate(prev.l_desc, prev.mask) if self.use_ba else None
+        self.refiner.submit(i, out.pose_c2w.clone(), prev, assoc=assoc, query=query)
 
 
 def _dt_at(seq, i: int) -> float:
@@ -197,10 +213,11 @@ class _History:
     """Per-frame rows (frames >= 1) of a run: rows already on the host (from a checkpoint, or
     read frame by frame on the non-deferred path) followed by rows still on the device.
 
-    A device row keeps the five ``_HIST_FIELDS`` tensors of a frame, never its whole FrameOutput
-    (whose track arrays are most of its bytes), and every ``chunk`` rows are stacked on the
-    device. Nothing here waits for the device until ``stacked``, which reads everything to the
-    host at once and is safe to call mid-run (it closes a partial chunk).
+    A device row keeps copies of the five ``_HIST_FIELDS`` tensors of a frame (a captured step's
+    next replay overwrites its outputs), never its whole FrameOutput (whose track arrays are most
+    of its bytes), and every ``chunk`` rows are stacked on the device. Nothing here waits for the
+    device until ``stacked``, which reads everything to the host at once and is safe to call
+    mid-run (it closes a partial chunk).
     """
 
     def __init__(self, chunk: int = HISTORY_CHUNK):
@@ -214,8 +231,8 @@ class _History:
             self.host[f] += list(r)
 
     def append(self, out) -> None:
-        """Keep frame output ``out``'s five history fields (device tensors)."""
-        self._pending.append(tuple(getattr(out, f) for f in _HIST_FIELDS))
+        """Keep copies of frame output ``out``'s five history fields (device tensors)."""
+        self._pending.append(tuple(getattr(out, f).clone() for f in _HIST_FIELDS))
         if len(self._pending) >= self.chunk:
             self._flush()
 
@@ -259,6 +276,7 @@ def run_sequence(
     verbose: bool = False,
     mesh=None,
     device=None,
+    graph: Optional[bool] = None,
 ) -> RunResult:
     """Run VO over ``seq`` (``frame(i) -> (left, right)``, ``calib``, ``len``) on ``device``
     (None: the current CUDA device; the CPU only when asked, ``device="cpu"``).
@@ -276,7 +294,10 @@ def run_sequence(
     reference's call sites and unused, as there. ``mesh`` routes the step through
     the dist layer (module docstring); every rank of the mesh makes this call.
     The run is in float32 whatever ``cfg.matmul_precision`` names (module
-    docstring); an unknown name raises ``ValueError``.
+    docstring); an unknown name raises ``ValueError``. ``graph`` (utils.graphs):
+    None steps through CUDA graphs on a CUDA device and eagerly on the CPU,
+    False runs the eager step, True on the CPU raises; a mesh steps eagerly
+    (with ``graph=True`` it raises).
     """
     with matmul_precision(cfg.matmul_precision):
         device = resolve(device)
@@ -300,18 +321,25 @@ def run_sequence(
         # A mesh steps frame by frame too: its data axis shards ONE stereo pair.
         group = cfg.fused_group if deferred and not refined and mesh is None else 1
 
+        # One graph memory pool for both steps: the groups replay first, the single-frame tail after.
+        captured = mesh is None and graphs.wanted(graph, device)
+        pool = graphs.Pool(device) if captured else None
+        step1 = make_fused_loop_step(
+            calib, cfg, with_landmarks=insert_landmarks, mesh=mesh, with_query_feats=use_loop_closure, graph=graph, pool=pool
+        )
+        stepN = (
+            make_fused_multi_step(calib, cfg, with_landmarks=insert_landmarks, group=group, graph=graph, pool=pool)
+            if group > 1
+            else None
+        )
+
         def run_group(state, lmap, dev_frames):
-            query = None
+            """One step over ``dev_frames`` (l0, r0, ...) -> (state, lmap, outs, query)."""
             if len(dev_frames) == 2:
-                r = vo_step(state, dev_frames[0], dev_frames[1], calib, cfg, return_feats=use_loop_closure, mesh=mesh)
-                state, outs = r[0], [r[1]]
-                query = r[2] if use_loop_closure else None
-            else:
-                state, outs = vo_step_multi(state, dev_frames, calib, cfg)
-            if lmap is not None:
-                for out in outs:
-                    lm_mod.insert(lmap, out.new_lm_l_px, out.new_lm_r_px, out.new_lm_mask, out.pose_c2w, calib, cfg.landmarks)
-            return state, outs, query
+                r = step1(state, lmap, *dev_frames)
+                return r[0], r[1], [r[2]], r[3] if use_loop_closure else None
+            state, lmap, *outs = stepN(state, lmap, *dev_frames)
+            return state, lmap, outs, None
 
         state = init_state(cfg, seed, device)
         lmap = lm_mod.init_map(cfg.landmarks, device) if insert_landmarks else None
@@ -334,10 +362,11 @@ def run_sequence(
             )
             resumed_refiner_state = ck.refiner
 
-        if warmup:
+        if warmup or captured:
             # Throwaway state and map: first-use costs (kernel build, library
             # handles, allocator growth, under a mesh the first collectives of
-            # every rank) land here, outside the timed loop.
+            # every rank) and the steps' capture land here, outside the timed
+            # loop and before the refiner's thread starts.
             l0, r0 = (to_device(im, device) for im in seq.frame(0))
             w_map = lm_mod.init_map(cfg.landmarks, device) if insert_landmarks else None
             if group > 1:
@@ -425,26 +454,28 @@ def run_sequence(
 
         t0 = time.perf_counter()
         i = start_frame
-        while i < n:
-            t_frame = time.perf_counter()
-            g = group if i + group <= n else 1  # single-frame tail
-            host_frames = [seq.frame(i + k) for k in range(g)]
-            dev_frames = [to_device(im, device) for lr in host_frames for im in lr]
-            key = kfs is not None and kfs.is_keyframe(i)
-            if key:
-                kfs.throttle()
-            state, outs, query = run_group(state, lmap, dev_frames)
-            if key:
-                kfs.submit(i, state, outs[0], query)
-            for k, out in enumerate(outs):
-                j = i + k
-                if not deferred:
-                    host_frame(j, out, state, t_frame)
-                elif j > 0:  # all_poses starts at frame 2 (VO.m:133)
-                    hist.append(out)
-                if viz_every and j > 0 and j % viz_every == 0:
-                    live_viz(j, out, host_frames[k][0])
-            i += g
+        # The span lets a profile read the frame loop apart from the warm-up and capture before it.
+        with torch.profiler.record_function(FRAME_LOOP):
+            while i < n:
+                t_frame = time.perf_counter()
+                g = group if i + group <= n else 1  # single-frame tail
+                host_frames = [seq.frame(i + k) for k in range(g)]
+                dev_frames = [to_device(im, device) for lr in host_frames for im in lr]
+                key = kfs is not None and kfs.is_keyframe(i)
+                if key:
+                    kfs.throttle()
+                state, lmap, outs, query = run_group(state, lmap, dev_frames)
+                if key:
+                    kfs.submit(i, state, outs[0], query)
+                for k, out in enumerate(outs):
+                    j = i + k
+                    if not deferred:
+                        host_frame(j, out, state, t_frame)
+                    elif j > 0:  # all_poses starts at frame 2 (VO.m:133)
+                        hist.append(out)
+                    if viz_every and j > 0 and j % viz_every == 0:
+                        live_viz(j, out, host_frames[k][0])
+                i += g
         _sync(device)
         wall = time.perf_counter() - t0
         if mlog is not None:
