@@ -4,7 +4,10 @@
     python3 chip_smoke.py
 
 Every run_sequence call below steps through CUDA graphs (utils.graphs: the
-factories of odometry.pipeline, captured in each run's warm-up), except where
+factories of odometry.pipeline, captured in each run's warm-up), and on the
+refined path also solves, verifies, associates and describes through them
+(the refiner's window solve and verification round, the keyframe association
+and global descriptor, captured in the refiner's warm-up), except where
 ``graph=False`` is named and on the mesh (phases 11-12), which stays eager.
 
 Phases (any failure raises and exits non-zero; nothing is caught):
@@ -41,6 +44,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      reset (the refiner's own warm-ups run before its timed loop). Fails on a non-finite pose, a wrong pose count, keyframes
      != 39, no window solve, no verified loop candidate, refined ATE > plain
      ATE + 0.02 m, plain ATE > 0.15 m, or a kernel the timed run never launched;
+     and unless each of the refined path's four programs (``window_solve``,
+     ``verification_round``, ``global_descriptor``, ``keyframe_association``:
+     ``graphs.PROGRAMS``, set to 0 just before the run) was captured once per
+     shape and replayed in the run (the association and the descriptor once
+     per keyframe, the solve at least once per accepted solve), printed per
+     program;
   6. a loop closure that fires on the card: every 5th frame of the phase-5 feed
      from frame 5 on, detected and stereo-matched on the card, archived in a
      default-config LoopCloser with its GT pose drifted +0.1 m in x per
@@ -145,8 +154,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      profiler trace K1 and K2 must have been launched by ``cudaGraphLaunch``;
      it prints the solver kernels of RANSAC's 6x6 solve, the seconds of the
      first call of each step (warm-up, capture, instantiation, one replay) and
-     the bytes of the graph pools. Last, per frame of the frame loop, graphed
-     and eager: host launches, device busy ms and launches, idle share (the
+     the bytes of the graph pools; then, for a refiner and keyframe
+     association built anew, each of the four programs' capture seconds and
+     the bytes of its own pool. Last, per frame of the frame loop, graphed
+     and eager: host launches (both threads, and apart for the main thread and
+     the refiner's worker), device busy ms and launches, idle share, and on
+     the refined path ``main_wait_s`` and the worker's dispatch seconds (the
      first 10 frames of the plain feed and the first 20 of the refined one;
      tools/profile_torch_step.frame_loop_trace);
 The line before the last is a JSON summary of the kernels: ``launches`` summed
@@ -192,7 +205,7 @@ from vo_tpu_torch.odometry import checkpoint, runner
 from vo_tpu_torch.odometry.refiner import global_desc
 from vo_tpu_torch.pose import ransac
 from vo_tpu_torch.slam.loop_closure import ArchivedKeyframe, LoopCloser
-from vo_tpu_torch.utils import debug
+from vo_tpu_torch.utils import debug, graphs
 
 N_FRAMES = 30
 N_LANDMARKS = 6000
@@ -234,6 +247,8 @@ SMALL_CAPACITY = 16  # phase 14: LoopConfig.max_keyframes
 SMALL_CAPACITY_DECIMATIONS = 3  # phase 14: the reference LoopCloser's for 39 keyframes at capacity 16
 POSE_OK_FRAC_MIN = 0.95  # phase 14
 PROFILE_PLAIN_FRAMES, PROFILE_REFINED_FRAMES = 10, 20  # phase 15: the profiles' first frames of the two feeds
+# The refined path's programs captured apart from the step (utils.graphs.StaticCall names): phase 5 and 15.
+REFINER_PROGRAMS = ("window_solve", "verification_round", "global_descriptor", "keyframe_association")
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 KERNELS = {
@@ -442,8 +457,10 @@ def refined_path(feed: OutAndBackFeed, cfg: PipelineConfig, device):
     gt = feed.gt_poses
     plain = runner.run_sequence(feed, cfg, device=device)
     kernels.reset_launches()
+    graphs.reset_programs()
     res = runner.run_sequence(feed, cfg, use_ba=True, use_loop_closure=True, device=device)
     launches = dict(kernels.LAUNCHES)
+    programs = {k: dict(v) for k, v in graphs.PROGRAMS.items()}
     ate_plain = metrics.ate(plain.poses, gt)["rmse"]
     ate = metrics.ate(res.poses, gt)["rmse"]
     st = res.refine_stats
@@ -471,6 +488,19 @@ def refined_path(feed: OutAndBackFeed, cfg: PipelineConfig, device):
     for k, v in launches.items():
         if v <= 0:
             raise AssertionError(f"kernel {k} was not launched by the refined path")
+    # Each of the four programs captured once per shape it is called at (the query of a verification
+    # round and the global descriptor's input: max_keypoints rows, and max_tracks where that differs),
+    # and replayed in the run: the association and the descriptor once per keyframe.
+    n_shapes = len({cfg.sift.max_keypoints, cfg.max_tracks})
+    want_captures = dict(window_solve=1, verification_round=n_shapes, global_descriptor=n_shapes, keyframe_association=1)
+    got_captures = {k: programs.get(k, {}).get("captures", 0) for k in REFINER_PROGRAMS}
+    replays = {k: programs.get(k, {}).get("replays", 0) for k in REFINER_PROGRAMS}
+    print(f"    programs captured {json.dumps(got_captures)}, replayed {json.dumps(replays)}")
+    if got_captures != want_captures:
+        raise AssertionError(f"refined run captured {got_captures}, expected {want_captures}")
+    if not (replays["keyframe_association"] == replays["global_descriptor"] == want_kf
+            and replays["window_solve"] >= st["ba_solves"] and replays["verification_round"] >= 1):
+        raise AssertionError(f"refined run replayed {replays} for {want_kf} keyframes and {st['ba_solves']} solves")
     return launches, res
 
 
@@ -1256,7 +1286,8 @@ def graphed_against_eager(feed, feed5, cfg: PipelineConfig, device, plain: runne
     solver = sorted({n[:80] for n in by if any(k in n.lower() for k in ("getrf", "getrs", "magma", "trsm", "cusolver"))})
     n_kernels = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
     print(
-        f"[15] graphed against eager: plain {len(feed)} frames and refined {len(feed5)} frames bit-equal (poses, rel poses, "
+        f"[15] graphed against eager: plain {len(feed)} frames and refined {len(feed5)} frames (the step, and the "
+        f"window solve, verification round, association and global descriptor) bit-equal (poses, rel poses, "
         f"n_inliers, n_tracks, pose_ok, landmarks; refined keyframes {refined.refine_stats['n_keyframes']}, solves "
         f"{refined.refine_stats['ba_solves']}, verified {refined.refine_stats['lc_verified']}); make_jitted_step's track ids "
         f"and poses equal frame by frame; graphed resumes against uninterrupted graphed runs {json.dumps(resumed)}; "
@@ -1270,6 +1301,30 @@ def graphed_against_eager(feed, feed5, cfg: PipelineConfig, device, plain: runne
         f"the single-frame step; graph pools {pools_bytes} bytes"
     )
     del r, stepN, step1
+
+    # (the refined path's four programs: the seconds of each capture and the bytes of each pool)
+    from vo_tpu_torch.odometry.refiner import RefinerWorker
+
+    t_cap = time.perf_counter()
+    worker = RefinerWorker(feed5.calib, cfg, use_ba=True, use_loop_closure=True, device=device)
+    kfs = runner._Keyframes(worker, cfg, device, use_ba=True, graph=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_cap
+    calls = [worker.wba._call, *worker.lclo._rounds.calls.values(), *worker._gdesc.calls.values(), kfs._assoc]
+    stats = [dict(program=c.name, capture_s=round(c.capture_s, 4), pool_bytes=c.pool.bytes()) for c in calls]
+    worker.close()
+    del worker, kfs, calls
+    # (the solver kernels of the window solve's [6K, 6K] solve_ex, eager: what the backend PyTorch picks captured)
+    prob, calib_dev = window_problem(cfg, device), feed.calib.to(device)
+    window.solve_window(prob, calib_dev, cfg.ba)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        window.solve_window(prob, calib_dev, cfg.ba)
+        torch.cuda.synchronize()
+    ba_solver = sorted({e.name[:80] for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                        and any(k in e.name.lower() for k in ("getrf", "getrs", "magma", "trsm", "gemv", "cusolver"))})
+    print(f"     the refined path's programs (worker warm-up + association capture {build_s:.3f} s): {json.dumps(stats)}; "
+          f"the window solve's solver kernels (backend {torch.backends.cuda.preferred_linalg_library()}) {ba_solver}")
 
     # (the profile: per frame, host launches, device busy and launches, idle share; graphed and eager)
     prof_tool = load_tool("profile_torch_step")
@@ -1285,6 +1340,9 @@ def graphed_against_eager(feed, feed5, cfg: PipelineConfig, device, plain: runne
             loop.pop("kernel_ms_per_frame")
             row = dict(frames=n, wall_ms_per_frame=untraced.per_frame_ms,
                        device_idle_share=1.0 - loop["device_busy_ms_per_frame"] / untraced.per_frame_ms, **loop)
+            if path == "refined":
+                row["refine_stats"] = {k: v for k, v in untraced.refine_stats.items()
+                                       if k in ("main_wait_s", "worker_ba_dispatch_s", "worker_lc_dispatch_s")}
             print(f"     profile, {path} {name} ({n} frames): {json.dumps(row)}")
     print(f"     phase 15 took {time.perf_counter() - t:.1f} s")
 

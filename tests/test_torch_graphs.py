@@ -76,7 +76,7 @@ def static(monkeypatch):
         made.append(_BodyReplay(body))
         return made[-1]
 
-    monkeypatch.setattr(graphs, "wanted", lambda graph, device: graph is not False)
+    monkeypatch.setattr(graphs, "wanted", lambda graph, device, mesh=None: mesh is None and graph is not False)
     monkeypatch.setattr(graphs, "capture", capture)
     monkeypatch.setattr(graphs, "Pool", lambda device: None)
     return made
@@ -300,7 +300,9 @@ def test_refined_run_over_static_buffers_equals_the_eager_run(static):
     seq, cfg = _refined_feed(), _refined_cfg()
     kw = dict(use_ba=True, use_loop_closure=True, warmup=False, device="cpu")
     got = p_runner.run_sequence(seq, cfg, **kw)
-    assert len(static) == 1  # the single-frame step, captured once
+    # Each captured once: the single-frame step, the window solve, the verification round, the
+    # global descriptor (one query shape: max_keypoints = max_tracks here) and the association.
+    assert len(static) == 5
     want = p_runner.run_sequence(seq, cfg, graph=False, **kw)
     assert np.array_equal(got.poses, want.poses), np.abs(got.poses - want.poses).max()
     for k in ("rel_poses", "n_inliers", "n_tracks", "pose_ok", "landmarks"):

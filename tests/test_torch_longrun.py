@@ -81,7 +81,7 @@ def matrix(longrun, tmp_path_factory):
 def test_run_matrix_payload(matrix):
     assert set(matrix["configs"]) == {"vo", "vo_lc", "vo_ba", "vo_ba_lc"}
     assert matrix["n_frames"] == N_FRAMES and matrix["device"] == "cpu" and matrix["device_kind"] == "cpu"
-    assert matrix["power_limit_w"] is None and matrix["noise"] == 0.0
+    assert matrix["power_limit_w"] is None and matrix["noise"] == 0.0 and matrix["graphed"] is False
     for name, row in matrix["configs"].items():
         assert KEYS <= set(row), name
         assert all(np.isfinite(row[k]) for k in KEYS), name

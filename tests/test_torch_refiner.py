@@ -238,12 +238,12 @@ def test_checkpoint_state_matches_reference_and_resumes_from_it(ref, rng):
             got = np.asarray(p_state[k])
             want = np.asarray(want)
             if k in ("lc_pend_ok", "lc_pend_ninl", "lc_pend_poses", "lc_pend_nm"):
-                # The reference pads the round to candidate_budget, the port verifies the candidates
-                # it has; both read the first n_cand. The two packages draw different RANSAC samples,
-                # so only the match counts and (no keyframe here resembles another) the verdicts agree.
-                assert got.shape[0] == n_cand <= want.shape[0], k
+                # Both pad the round to candidate_budget with the first candidate and read the
+                # first n_cand. The two packages draw different RANSAC samples, so only the match
+                # counts and (no keyframe here resembles another) the verdicts agree, padding too.
+                assert got.shape == want.shape and n_cand <= want.shape[0], k
                 if k in ("lc_pend_ok", "lc_pend_nm"):
-                    np.testing.assert_array_equal(got, want[:n_cand], err_msg=k)
+                    np.testing.assert_array_equal(got, want, err_msg=k)
                 continue
             assert got.shape == want.shape, k
             if k == "lc_key":

@@ -11,10 +11,12 @@ card. Prints each configuration's line and one JSON payload with the reference's
 ``refine_stats``), plus ``device_kind`` and ``power_limit_w``.
 
     python tools/longrun_torch.py [--frames 600] [--landmarks 9000] [--noise 0.02] [--out F.json]
-                                  [--cpu] [--host-frames]
+                                  [--cpu] [--host-frames] [--eager]
 
 The current CUDA card unless ``--cpu``; ``--host-frames`` feeds host frames per frame
-instead of staging them on the card first.
+instead of staging them on the card first. On the card every run goes through CUDA
+graphs (the step, and on the refined configurations the refiner's and keyframe
+programs: odometry.runner); ``--eager`` runs them with ``graph=False``.
 """
 from __future__ import annotations
 
@@ -60,8 +62,9 @@ def load_or_render(
     )
 
 
-def run_matrix(pre, poses: np.ndarray, cfg, device, noise: float = 0.0) -> dict:
-    """The four configurations over the first len(poses) frames of ``pre`` -> the reference's payload."""
+def run_matrix(pre, poses: np.ndarray, cfg, device, noise: float = 0.0, graph=None) -> dict:
+    """The four configurations over the first len(poses) frames of ``pre`` -> the reference's payload
+    (``graph`` as run_sequence's)."""
     import torch
 
     from vo_tpu_torch.bench import power_limit_w
@@ -73,7 +76,7 @@ def run_matrix(pre, poses: np.ndarray, cfg, device, noise: float = 0.0) -> dict:
     n = len(poses)
     results = {}
     for name, kw in CONFIGS.items():
-        res = runner.run_sequence(pre, cfg, n_frames=n, device=device, **kw)
+        res = runner.run_sequence(pre, cfg, n_frames=n, device=device, graph=graph, **kw)
         a = metrics.ate(res.poses, poses)
         xz = metrics.xz_error(res.poses, poses)
         results[name] = dict(
@@ -94,6 +97,7 @@ def run_matrix(pre, poses: np.ndarray, cfg, device, noise: float = 0.0) -> dict:
         device=device.type,
         device_kind=torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         power_limit_w=power_limit_w(device),
+        graphed=graph is not False and device.type == "cuda",
         configs=results,
     )
 
@@ -108,6 +112,7 @@ def main(argv=None) -> int:
     ap.add_argument(
         "--host-frames", action="store_true", help="feed frames from the host per frame instead of staging them on the card"
     )
+    ap.add_argument("--eager", action="store_true", help="run with graph=False (default: CUDA graphs on the card)")
     args = ap.parse_args(argv)
 
     from vo_tpu_torch.bench import stage_frames
@@ -124,7 +129,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         pre = stage_frames(pre, device)
         print(f"# staged {args.frames} frame pairs on the card in {time.perf_counter() - t0:.1f}s", flush=True)
-    payload = run_matrix(pre, poses, PipelineConfig(), device, noise=args.noise)
+    payload = run_matrix(pre, poses, PipelineConfig(), device, noise=args.noise, graph=False if args.eager else None)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(payload, f, indent=2)

@@ -35,7 +35,11 @@ With ``--refined`` it profiles the refined path instead
 199-frame out-and-back feed): untraced ms/frame and fps, the refiner's stats
 (main-thread wait, worker phase seconds), and under torch.profiler the device
 busy time (the union of kernel and copy intervals over both streams: the
-frame loop's and the refiner's) and idle share.
+frame loop's and the refiner's), idle share, and the host launches per frame
+apart for the main thread and the refiner's worker thread (by the profiler's
+thread ids). On the card the refiner's window solve and verification round
+and the keyframe association and global descriptor are CUDA graphs too;
+``--eager`` runs all of it eagerly.
 
 With ``--exact`` it profiles one detection call (4 images) on the exact-SIFT
 oracle path (``fast_descriptor=False``) beside the fast path's: host time to
@@ -67,6 +71,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -118,17 +123,30 @@ def traced(fn, reps: int):
 def frame_loop_trace(run, n_frames: int):
     """run() (a run_sequence call) under torch.profiler -> (its result, per-frame figures of its frame
     loop: device busy ms (the union over streams), device launches, host launches and the calls
-    among them). Only the span ``runner.FRAME_LOOP`` counts: the warm-up and the capture before it
-    are left out, and so is the device work queued before the span began."""
+    among them, and the host launches by thread: ``main`` the thread that ran the frame loop,
+    ``worker`` every other one, the refiner's). Only the span ``runner.FRAME_LOOP`` counts: the
+    warm-up and the captures before it are left out, and so is the device work queued before the
+    span began; ``worker_host_launches_after_loop`` counts the launches other threads made after it
+    (the refiner draining its last keyframes)."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         res = run()
         torch.cuda.synchronize()
     evs = prof.events()
-    span = next(e.time_range for e in evs if e.name == runner.FRAME_LOOP and e.device_type != torch.autograd.DeviceType.CUDA)
+    loop = next(e for e in evs if e.name == runner.FRAME_LOOP and e.device_type != torch.autograd.DeviceType.CUDA)
+    span = loop.time_range
     dev = [e for e in evs if e.device_type == torch.autograd.DeviceType.CUDA and e.name != runner.FRAME_LOOP
            and e.time_range.start >= span.start]
-    host = collections.Counter(e.name for e in evs if e.name in HOST_LAUNCH_CALLS and span.start <= e.time_range.start <= span.end)
+    launches = [e for e in evs if e.name in HOST_LAUNCH_CALLS and e.time_range.start >= span.start]
+    inside = [e for e in launches if e.time_range.start <= span.end]
+    host = collections.Counter(e.name for e in inside)
+    # The main thread is this one, the caller of run(); any other (the refiner's worker) goes on after
+    # the span until the run drains it. A CUDA runtime call's resource id is the system id of the
+    # thread that made it (its ``thread`` is the id of a parent op's thread, or of the thread that
+    # read the profile where the call had none).
+    main_tid = threading.get_native_id()
+    main = [e for e in inside if e.device_resource_id == main_tid]
+    worker_after = sum(1 for e in launches if e.device_resource_id != main_tid and e.time_range.start > span.end)
     by_name = collections.Counter()
     for e in dev:
         by_name[e.name] += e.time_range.elapsed_us() / 1000.0 / n_frames
@@ -136,6 +154,8 @@ def frame_loop_trace(run, n_frames: int):
         device_busy_ms_per_frame=union_ms(dev) / n_frames,
         device_launches_per_frame=len(dev) / n_frames,
         host_launches_per_frame=sum(host.values()) / n_frames,
+        host_launches_per_frame_by_thread=dict(main=len(main) / n_frames, worker=(len(inside) - len(main)) / n_frames),
+        worker_host_launches_after_loop=worker_after,
         host_launch_calls_per_frame={k: v / n_frames for k, v in sorted(host.items())},
         kernel_ms_per_frame=by_name,
     )
@@ -413,7 +433,8 @@ def profile_refined(cfg: PipelineConfig, dev, card: str, graph) -> int:
         f"refined path ({'graphed' if graph is None else 'eager'}): {res.per_frame_ms:.3f} ms/frame ({res.frames_per_sec:.2f} fps) "
         f"untraced; device busy {loop['device_busy_ms_per_frame']:.3f} ms/frame (both streams), idle share "
         f"{summary['device_idle_share']:.3f}, {loop['device_launches_per_frame']:.0f} device launches/frame, "
-        f"{loop['host_launches_per_frame']:.1f} host launches/frame (both threads) {loop['host_launch_calls_per_frame']}"
+        f"{loop['host_launches_per_frame']:.1f} host launches/frame (both threads) {loop['host_launch_calls_per_frame']}, "
+        f"by thread {loop['host_launches_per_frame_by_thread']}, worker after the loop {loop['worker_host_launches_after_loop']}"
     )
     print(f"refine_stats {json.dumps(res.refine_stats, sort_keys=True)}")
     for k, v in by_name.most_common(12):

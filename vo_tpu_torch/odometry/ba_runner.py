@@ -8,6 +8,13 @@ on the device (ba.window). See the reference module's docstring for what the
 solve measurably buys (alone: nothing on the synthetic feed; with loop
 closure: cleaner odometry edges for the closure graph).
 
+On a CUDA card the solve is one CUDA graph (utils.graphs.StaticCall, the
+reference's ``jax.jit(solve_window)``), captured at the first solve (``warmup``
+makes it, at the production shapes (K, M) = (``cfg.window``,
+``cfg.max_points``)); each dispatch copies the assembled problem into its
+static buffers and replays.
+``graph=False``, the CPU and a mesh solve eagerly.
+
 The host parts (triangulation, Keyframe, the union-find associator, the
 window assembly and the collect gate) are the reference's numpy code, copied
 because the reference module imports jax. The device solve is dispatched
@@ -29,6 +36,7 @@ from ..convert import ba_problem_from_numpy
 from ..dist.ba_sharded import solve_window_sharded
 from ..dist.mesh import axis_size
 from ..geom.camera import StereoCalib
+from ..utils import graphs
 from ..utils.device import resolve
 from ..utils.host_copy import HostCopy
 
@@ -145,16 +153,20 @@ class WindowAssociator:
 class WindowedBA:
     """Keyframe window + device solver; returns pose corrections."""
 
-    def __init__(self, calib: StereoCalib, cfg: BAConfig, device=None, mesh=None, group=None):
+    def __init__(self, calib: StereoCalib, cfg: BAConfig, device=None, mesh=None, group=None, graph=None):
         """``mesh`` with a "model" axis > 1 runs every window solve landmark-sharded over it
         (dist.ba_sharded: the same solver, its landmark sums all-reduced); every rank of the
         axis then holds the same window and calls the same methods in the same order.
         ``group`` is the process group the solve reduces over, for a caller on a thread of
-        its own (the refiner's worker); None is the mesh's own group."""
+        its own (the refiner's worker); None is the mesh's own group. ``graph``: None solves
+        through a CUDA graph on a CUDA device and eagerly on the CPU, False eagerly, True on
+        the CPU raises; under a mesh the solve is eager, and ``graph=True`` raises."""
         self.calib = calib.to("cpu")  # the window assembly reads it on the host
         self.cfg = cfg
         self.device = resolve(device)
         self._calib_dev = calib.to(self.device)
+        self._graphed = graphs.wanted(graph, self.device, mesh)
+        self._call: Optional[graphs.StaticCall] = None  # the captured solve (at the first solve: warmup)
         self._mesh = mesh if axis_size(mesh, "model") > 1 else None
         self._group = group
         self.window: deque = deque(maxlen=cfg.window)
@@ -165,14 +177,22 @@ class WindowedBA:
         self.n_active: list[int] = []  # active landmarks per assembled window
         self.n_candidate: list[int] = []  # multi-view tracks before capacity cap
 
-    def _solve(self, prob: BAProblem):
+    def _solve_eager(self, prob: BAProblem):
         if self._mesh is not None:
             return solve_window_sharded(prob, self._calib_dev, self.cfg, self._mesh, group=self._group)
         return solve_window(prob, self._calib_dev, self.cfg)
 
+    def _solve(self, prob: BAProblem):
+        if not self._graphed:
+            return self._solve_eager(prob)
+        if self._call is None:
+            self._call = graphs.StaticCall(self._solve_eager, (prob,), self.device, "window_solve")
+        return self._call(prob)
+
     def warmup(self) -> None:
-        """Run the solver once on the production (K, M) shapes with an empty problem, so that
-        first-use costs (solver library handles, allocator growth) land outside the timed loop."""
+        """Run the solver once on the production (K, M) shapes with an empty problem (graphed: the
+        capture, then one replay), so that first-use costs (solver library handles, allocator
+        growth, the capture) land outside the timed loop."""
         K, M = self.cfg.window, self.cfg.max_points
         d = self.device
         prob = BAProblem(
@@ -291,7 +311,8 @@ class WindowedBA:
 
     def dispatch(self) -> bool:
         """Assemble + launch the current window's solve WITHOUT reading the result: its host
-        copies start now and are read PIPELINE_DEPTH keyframes later (collect()).
+        copies start now, on the stream of the solve and before any later solve can overwrite
+        a graph's outputs, and are read PIPELINE_DEPTH keyframes later (collect()).
         Returns whether a solve was launched."""
         prob = self._assemble()
         if prob is None:

@@ -284,11 +284,7 @@ def _compiled(fn, calib: StereoCalib, graph, pool, mesh=None):
     """``fn(carry, *frames) -> (carry, outputs)`` as a factory's step ``step(carry, frames)``: the eager
     function where ``graphs.wanted`` says so for ``calib``'s device, else one ``graphs.StaticStep``
     per shape of the frames. A mesh step stays eager; ``graph=True`` with a mesh raises."""
-    if mesh is not None:
-        if graph:
-            raise ValueError("graph=True with a mesh: the mesh step runs eagerly (its collectives are not captured)")
-        graph = False
-    if not graphs.wanted(graph, calib.P1.device):
+    if not graphs.wanted(graph, calib.P1.device, mesh):
         return lambda carry, frames: fn(carry, *frames)
     pool = pool if pool is not None else graphs.Pool(calib.P1.device)
     by_shape: dict = {}

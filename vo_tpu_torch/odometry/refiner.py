@@ -20,6 +20,13 @@ at ``submit``; the frame loop's tensors it reads are marked with
 ``record_stream`` so that the caching allocator does not hand their memory
 back to the frame loop early. A worker error reaches the main thread at
 its next ``throttle``, ``wait_pending`` or ``close``.
+
+On a CUDA card (``graph``, utils.graphs) the worker's device programs are
+CUDA graphs: the window solve (odometry.ba_runner), the verification round
+(slam.loop_closure) and the global descriptor that ``submit`` computes on the
+main thread. All are captured in the warm-up, the worker's first job, while
+the constructor blocks the main thread, so no capture runs while the other
+thread launches; each has a memory pool of its own.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ import torch
 from ..config import PipelineConfig
 from ..dist.mesh import axis_size, new_axis_group
 from ..geom.camera import StereoCalib
+from ..utils import graphs
 from ..utils.device import resolve
 from ..utils.host_copy import HostCopy
 
@@ -138,8 +146,13 @@ class RefinerWorker:
         use_loop_closure: bool,
         device=None,
         mesh=None,
+        graph=None,
     ):
-        """``mesh`` with a "model" axis > 1 shards the window solve over it. The solve's
+        """``graph``: None runs the worker's programs as CUDA graphs on a CUDA device and eagerly
+        on the CPU, False eagerly, True on the CPU raises; under a mesh they run eagerly, and
+        ``graph=True`` raises (module docstring).
+
+        ``mesh`` with a "model" axis > 1 shards the window solve over it. The solve's
         collectives then run on this worker's thread (and CUDA stream) while the frame
         loop's RANSAC gathers on the main thread, over the same ranks: two threads must
         never share a communicator, so the worker gets a process group of its own, created
@@ -152,6 +165,7 @@ class RefinerWorker:
         self.device = resolve(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
+        graphed = graphs.wanted(graph, self.device, mesh)
         self.wba = None
         self.lclo = None
         self.associator = None
@@ -159,12 +173,14 @@ class RefinerWorker:
             from .ba_runner import WindowAssociator, WindowedBA
 
             group = new_axis_group(mesh, "model") if axis_size(mesh, "model") > 1 else None
-            self.wba = WindowedBA(calib, cfg.ba, device=self.device, mesh=mesh, group=group)
+            self.wba = WindowedBA(calib, cfg.ba, device=self.device, mesh=mesh, group=group, graph=graphed)
             self.associator = WindowAssociator(cfg.ba.window)
         if use_loop_closure:
             from ..slam.loop_closure import LoopCloser
 
-            self.lclo = LoopCloser(calib, cfg.loop, matcher=cfg.matcher, device=self.device)
+            self.lclo = LoopCloser(calib, cfg.loop, matcher=cfg.matcher, device=self.device, graph=graphed)
+        # submit's global descriptor: captured per shape in the warm-up, or eager
+        self._gdesc = graphs.ByShape(global_desc, self.device, "global_descriptor") if graphed else global_desc
         self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         # frame_idx -> latest corrected [4,4] pose (worker-owned, lock-guarded)
         self._kf_corrected: dict[int, np.ndarray] = {}
@@ -195,8 +211,15 @@ class RefinerWorker:
     def _warmup(self) -> None:
         if self.wba is not None:
             self.wba.warmup()
-        if self.lclo is not None:
-            self.lclo.warmup(self.cfg.max_tracks, self.cfg.sift.max_keypoints)
+        if self.lclo is None:
+            return
+        # Every shape submit can hand the closer: the full detection set as the query (the
+        # runner's), or the stereo subset where a caller passes none.
+        C, Q = self.cfg.max_tracks, self.cfg.sift.max_keypoints
+        for n in dict.fromkeys((Q, C)):
+            self.lclo.warmup(C, n)
+            if isinstance(self._gdesc, graphs.ByShape):
+                self._gdesc.capture(torch.zeros((n, 128), device=self.device), torch.zeros(n, dtype=torch.bool, device=self.device))
 
     # -- main-thread API ------------------------------------------------------
 
@@ -213,7 +236,7 @@ class RefinerWorker:
             # (a far larger revisit/unrelated margin than the stereo subset's).
             gd, gm = (query[1], query[2]) if query is not None else (prev_feats.l_desc, prev_feats.mask)
             names.append("gdesc")
-            arrs.append(global_desc(gd, gm))
+            arrs.append(self._gdesc(gd, gm))
         if self.wba is not None:  # window assembly runs on the host
             names += ["l_xy", "r_xy", "mask", "ids"]
             arrs += [prev_feats.l_xy, prev_feats.r_xy, prev_feats.mask, prev_feats.ids]
@@ -451,7 +474,8 @@ class RefinerWorker:
             lc._path_m = float(p["lc_path_m"])
             lt = np.asarray(p["lc_last_t"])
             lc._last_t = None if np.isnan(lt).any() else lt
-            lc._gen = generator_from_fields(p, self.device, prefix="lc_")
+            # Into the closer's own generator: its captured rounds draw from that one.
+            lc._gen.set_state(generator_from_fields(p, self.device, prefix="lc_").get_state())
             if "lc_pend_ver" in p:
                 lc._pending = (
                     int(p["lc_pend_ver"]),

@@ -20,7 +20,11 @@ The refined path (``use_ba`` / ``use_loop_closure``) steps one frame at a
 time and hands every ``cfg.ba.keyframe_every``-th frame to the background
 refiner (odometry.refiner); with BA, the new keyframe's descriptors are first
 matched on the device against every keyframe of the window (the runner's
-descriptor ring). The frame loop's only host waits are the refiner's
+descriptor ring). On a CUDA device that association, and the refiner's window
+solve, verification round and global descriptor, are CUDA graphs too, each
+with a pool of its own (``graph=False`` and a mesh run them eagerly; the
+refiner captures its programs in its warm-up, this module the association
+after it). The frame loop's only host waits are the refiner's
 ``throttle`` and the final synchronise. Corrections live in the worker's
 frame, and the full trajectory is re-anchored onto the corrected keyframes
 at the end (odometry.correction).
@@ -125,9 +129,18 @@ def _sync(device) -> None:
 
 
 class _Keyframes:
-    """The refined path's side of the frame loop: throttle, window association, submit."""
+    """The refined path's side of the frame loop: throttle, window association, submit.
 
-    def __init__(self, refiner, cfg: PipelineConfig, device, use_ba: bool):
+    With BA, each new keyframe's descriptors are matched against every slot of a ring of the
+    window's keyframes (``ring_desc`` [window, max_tracks, 128], ``ring_mask``) and then written
+    into the slot at ``_pos`` (a device index), so that one program serves every slot: on a
+    CUDA card (``graph``) a CUDA graph over the ring, the reference's ``jax.jit(kf_assoc)`` with
+    its traced ``pos``, captured here (the refiner's thread is idle by then). The ring is the
+    program's state: a resume copies into it.
+    """
+
+    def __init__(self, refiner, cfg: PipelineConfig, device, use_ba: bool, graph=None):
+        """``graph`` as ``run_sequence``'s (utils.graphs.wanted)."""
         self.refiner = refiner
         self.cfg = cfg
         self.every = cfg.ba.keyframe_every
@@ -140,7 +153,15 @@ class _Keyframes:
             Kw, Cw = cfg.ba.window, cfg.max_tracks
             self.ring_desc = torch.zeros((Kw, Cw, 128), dtype=torch.float32, device=device)
             self.ring_mask = torch.zeros((Kw, Cw), dtype=torch.bool, device=device)
-            self.slot = 0
+            self._pos = torch.zeros(1, dtype=torch.long, device=device)  # the slot the program writes
+            self.slot = 0  # the same slot, on the host
+            self._assoc = (
+                graphs.StaticCall(
+                    self._associate, (self.ring_desc[0], self.ring_mask[0]), device, "keyframe_association"
+                )
+                if graphs.wanted(graph, device)
+                else self._associate
+            )
 
     def checkpoint_state(self) -> Optional[dict]:
         """RefinerWorker.checkpoint_state + the runner-side associator ring."""
@@ -157,9 +178,10 @@ class _Keyframes:
         if self.use_ba and "runner_ring_desc" in p:
             # The descriptor ring feeding the window associator is part of the
             # resumable state: a zero ring would mis-associate the first resumed window.
+            # Copied into the ring the association program reads, never rebound.
             dev = self.ring_desc.device
-            self.ring_desc = upload(torch.from_numpy(np.array(p["runner_ring_desc"], np.float32)), dev)
-            self.ring_mask = upload(torch.from_numpy(np.array(p["runner_ring_mask"], bool)), dev)
+            self.ring_desc.copy_(upload(torch.from_numpy(np.array(p["runner_ring_desc"], np.float32)), dev))
+            self.ring_mask.copy_(upload(torch.from_numpy(np.array(p["runner_ring_mask"], bool)), dev))
             self.slot = int(p["runner_assoc_slot"])
 
     def is_keyframe(self, i: int) -> bool:
@@ -173,23 +195,32 @@ class _Keyframes:
 
     @matmul_precision("float32")
     def _associate(self, desc: torch.Tensor, mask: torch.Tensor):
-        """Match the new keyframe against every ring slot, then take a slot for it -> (slot, a, b, ok)."""
+        """The association program: match the new keyframe against every ring slot, then write it
+        into slot ``_pos`` -> (a, b, ok), each [window, max_tracks]."""
         Cw = self.cfg.max_tracks
         ms = [match(desc, mask, d, m, self.cfg.matcher, Cw) for d, m in zip(self.ring_desc, self.ring_mask)]
+        self.ring_desc.index_copy_(0, self._pos, desc[None])
+        self.ring_mask.index_copy_(0, self._pos, mask[None])
+        return torch.stack([m.a_idx for m in ms]), torch.stack([m.b_idx for m in ms]), torch.stack([m.mask for m in ms])
+
+    def associate(self, desc: torch.Tensor, mask: torch.Tensor):
+        """The new keyframe against the window, then into the next slot -> (slot, a, b, ok)."""
         slot = self.slot
-        self.ring_desc[slot] = desc
-        self.ring_mask[slot] = mask
+        self._pos.fill_(slot)
+        a, b, ok = self._assoc(desc, mask)
         self.slot = (slot + 1) % self.ring_desc.shape[0]
-        return slot, torch.stack([m.a_idx for m in ms]), torch.stack([m.b_idx for m in ms]), torch.stack([m.mask for m in ms])
+        return slot, a, b, ok
 
     def submit(self, i: int, state, out, query) -> None:
         # state.prev now holds THIS frame's stereo features + track ids. The job keeps device
         # tensors that the worker reads later, on its own stream, and a captured step's next
         # replay overwrites its static buffers: the refiner gets copies, made on this stream.
+        # (The pose and the association's outputs reach it only through host copies started
+        # at submit, which hold their values as of now.)
         prev = StereoFeatures(*(t.clone() for t in state.prev))
         query = tuple(t.clone() for t in query) if query is not None else None
-        assoc = self._associate(prev.l_desc, prev.mask) if self.use_ba else None
-        self.refiner.submit(i, out.pose_c2w.clone(), prev, assoc=assoc, query=query)
+        assoc = self.associate(prev.l_desc, prev.mask) if self.use_ba else None
+        self.refiner.submit(i, out.pose_c2w, prev, assoc=assoc, query=query)
 
 
 def _dt_at(seq, i: int) -> float:
@@ -295,9 +326,10 @@ def run_sequence(
     the dist layer (module docstring); every rank of the mesh makes this call.
     The run is in float32 whatever ``cfg.matmul_precision`` names (module
     docstring); an unknown name raises ``ValueError``. ``graph`` (utils.graphs):
-    None steps through CUDA graphs on a CUDA device and eagerly on the CPU,
-    False runs the eager step, True on the CPU raises; a mesh steps eagerly
-    (with ``graph=True`` it raises).
+    None steps (and, on the refined path, associates, solves and verifies)
+    through CUDA graphs on a CUDA device and eagerly on the CPU, False runs all
+    of it eagerly, True on the CPU raises; a mesh runs eagerly (with
+    ``graph=True`` it raises).
     """
     with matmul_precision(cfg.matmul_precision):
         device = resolve(device)
@@ -322,7 +354,7 @@ def run_sequence(
         group = cfg.fused_group if deferred and not refined and mesh is None else 1
 
         # One graph memory pool for both steps: the groups replay first, the single-frame tail after.
-        captured = mesh is None and graphs.wanted(graph, device)
+        captured = graphs.wanted(graph, device, mesh)
         pool = graphs.Pool(device) if captured else None
         step1 = make_fused_loop_step(
             calib, cfg, with_landmarks=insert_landmarks, mesh=mesh, with_query_feats=use_loop_closure, graph=graph, pool=pool
@@ -382,8 +414,10 @@ def run_sequence(
 
             # Constructed before the timed loop: its solver and verification
             # warm-ups run here.
-            refiner = RefinerWorker(seq.calib, cfg, use_ba=use_ba, use_loop_closure=use_loop_closure, device=device, mesh=mesh)
-            kfs = _Keyframes(refiner, cfg, device, use_ba)
+            refiner = RefinerWorker(
+                seq.calib, cfg, use_ba=use_ba, use_loop_closure=use_loop_closure, device=device, mesh=mesh, graph=captured
+            )
+            kfs = _Keyframes(refiner, cfg, device, use_ba, graph=captured)
             if resumed_refiner_state is not None:
                 # Bit-exact resume of refined runs: ledgers, archive, loop edges,
                 # in-flight rounds, associator rings.

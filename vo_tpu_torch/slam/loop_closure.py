@@ -15,10 +15,16 @@ global pose-graph correction (port of vo_tpu.slam.loop_closure).
 
 Verification of a round is dispatched at one keyframe and read at the next:
 its outputs are copied to pinned host memory without waiting
-(utils.host_copy). RANSAC draws from a ``torch.Generator`` on the device,
-seeded 17 as the reference seeds ``PRNGKey(17)``; ``_dispatch_verify``
-also takes the per-candidate triples, so that tests can inject the
-reference's draws. The host logic (candidates, gates, decimation, the graph
+(utils.host_copy). A round is the reference's static batch: the candidates
+padded to ``cfg.candidate_budget`` with the first one, every one of them
+verified (and drawn for), the outputs of the first ``n`` read. On a CUDA card
+the round is one CUDA graph per query shape (utils.graphs, the reference's
+``jax.jit(_verify_fused)``), captured at the first round of a shape
+(``warmup`` makes that round at the production shapes); ``graph=False`` and the CPU verify
+eagerly. RANSAC draws from a ``torch.Generator`` on the device, seeded 17 as
+the reference seeds ``PRNGKey(17)``, and registered with each graph of the
+round; ``_dispatch_verify`` also takes the per-candidate triples (eager
+rounds only), so that tests can inject the reference's draws. The host logic (candidates, gates, decimation, the graph
 solve) is the reference's numpy code, copied because the reference module
 imports jax.
 """
@@ -38,6 +44,7 @@ from ..frontend.match import match
 from ..geom.camera import StereoCalib
 from ..geom.triangulate import triangulate_rectified
 from ..pose.ransac import estimate_world_pose
+from ..utils import graphs
 from ..utils.device import resolve
 from ..utils.host_copy import HostCopy, upload
 from ..utils.precision import matmul_precision
@@ -84,7 +91,10 @@ class LoopCloser:
         ransac: RansacConfig | None = None,
         matcher: MatcherConfig | None = None,
         device=None,
+        graph=None,
     ):
+        """``graph``: None verifies through CUDA graphs on a CUDA device and eagerly on the CPU,
+        False eagerly, True on the CPU raises (module docstring)."""
         self.device = resolve(device)
         self.calib = calib.to(self.device)
         self.cfg = cfg
@@ -118,6 +128,13 @@ class LoopCloser:
         )
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(17)
+        # The captured rounds, one per shape (None: eager). They hold _gen: a resume sets its
+        # state, never a new generator.
+        self._rounds = (
+            graphs.ByShape(self._verify, self.device, "verification_round", generators=(self._gen,))
+            if graphs.wanted(graph, self.device)
+            else None
+        )
 
     @matmul_precision("float32")
     def _verify(self, devs, cur_lpx, cur_desc, cur_mask, triples=None):
@@ -142,8 +159,9 @@ class LoopCloser:
 
     def warmup(self, capacity: int, query_capacity: int | None = None) -> None:
         """Run one verification round on the production shapes (``capacity`` = max_tracks for
-        the archived stereo side, ``query_capacity`` = max_keypoints for the full-query side)
-        before the timed loop; the RANSAC stream is left where it was."""
+        the archived stereo side, ``query_capacity`` = max_keypoints for the full-query side;
+        graphed: the capture, then one replay) before the timed loop; the RANSAC stream is left
+        where it was."""
         d = self.device
         Q = capacity if query_capacity is None else query_capacity
         z = (
@@ -152,15 +170,19 @@ class LoopCloser:
             torch.zeros((capacity, 128), device=d),
             torch.zeros(capacity, dtype=torch.bool, device=d),
         )
+        query = (torch.zeros((Q, 2), device=d), torch.zeros((Q, 128), device=d), torch.zeros(Q, dtype=torch.bool, device=d))
         state = self._gen.get_state()
-        outs = self._verify(
-            (z,) * self.cfg.candidate_budget,
-            torch.zeros((Q, 2), device=d),
-            torch.zeros((Q, 128), device=d),
-            torch.zeros(Q, dtype=torch.bool, device=d),
-        )
-        HostCopy(*outs).numpy()
+        HostCopy(*self._round((z,) * self.cfg.candidate_budget, query)).numpy()
         self._gen.set_state(state)
+
+    def _round(self, devs, query, triples=None):
+        """The padded round over ``devs`` (``cfg.candidate_budget`` candidates): the eager
+        ``_verify``, or the replay of its graph for these shapes."""
+        if self._rounds is None:
+            return self._verify(devs, *query, triples=triples)
+        if triples is not None:
+            raise ValueError("triples are injected into eager rounds only: make the LoopCloser with graph=False")
+        return self._rounds(devs, *query)
 
     # -- detection ----------------------------------------------------------
     def _candidates(self, pose: np.ndarray, gdesc: np.ndarray | None = None) -> list[int]:
@@ -214,8 +236,11 @@ class LoopCloser:
         ``query_dev`` — (xy, desc, mask) device tensors of the verified
         keyframe's FULL detection set (the production path); falls back to
         its archived stereo subset when absent (direct-API callers).
-        ``triples`` — optional per-candidate [H, 3] RANSAC samples."""
-        devs = [self._dev_of(c) for c in cands]
+        ``triples`` — optional per-candidate [H, 3] RANSAC samples, one for each of the
+        ``cfg.candidate_budget`` candidates of the padded round (eager rounds only)."""
+        B = self.cfg.candidate_budget
+        padded = list(cands) + [cands[0]] * (B - len(cands))  # the reference's static batch; extras ignored
+        devs = tuple(self._dev_of(c) for c in padded)
         if query_dev is None:
             d = self._dev_of(cur)
             query_dev = (d[0], d[2], d[3])
@@ -226,7 +251,7 @@ class LoopCloser:
             stream = torch.cuda.current_stream(self.device)
             for t in [t for dv in devs for t in dv] + list(query_dev):
                 t.record_stream(stream)
-        return HostCopy(*self._verify(devs, *query_dev, triples=triples))
+        return HostCopy(*self._round(devs, tuple(query_dev), triples))
 
     @staticmethod
     def _collect_verify(outs: HostCopy, n: int, min_inliers: int) -> list[Optional[np.ndarray]]:

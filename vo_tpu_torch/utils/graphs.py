@@ -15,18 +15,32 @@ step. This module owns the mechanics:
   draws from is registered with the graph, so that each replay advances it
   as the eager step would; the capture itself must leave it where it was,
   which is checked. A capture that fails raises: nothing falls back to eager.
+- ``StaticCall``: a program with static inputs and no carry, ``fn(*inputs) ->
+  outputs`` (the refiner's window solve and verification round, the keyframe
+  association and global descriptor); what it keeps between calls it keeps in
+  tensors of its own, updated in place. ``ByShape`` holds one per shape of
+  the inputs.
 - ``Pool``: a graph memory pool and its capture stream, shared by the graphs
   of one run (the group step and the single-frame step). Graphs that share a
   pool must be replayed in the order they were captured, never interleaved:
   the runner replays the group step, then the single-frame step for the tail.
+  A ``StaticCall`` made without a pool gets one of its own: the refiner's
+  programs replay on its thread, the keyframe programs on the frame loop's,
+  each in an order of its own, interleaved with the steps.
 - Launch accounting: a hand-written kernel's wrapper that runs under capture
   counts the call in ``frontend.kernels.CAPTURED``; the graph keeps how many
   it captured of each and adds them to ``kernels.LAUNCHES`` on each replay.
+- ``PROGRAMS``: captures, replays and capture seconds of every ``StaticCall``,
+  by program name (``reset_programs`` sets them to 0).
 
 ``wanted`` decides: ``graph=None`` captures on a CUDA device and runs eagerly
-on the CPU, ``graph=False`` is the eager step, ``graph=True`` on the CPU raises.
+on the CPU, ``graph=False`` is the eager step, ``graph=True`` on the CPU raises;
+under a mesh everything is eager, and ``graph=True`` raises.
 """
 from __future__ import annotations
+
+import time
+from collections import defaultdict
 
 import torch
 
@@ -35,9 +49,21 @@ from .debug import nan_checks_enabled
 
 WARMUP_RUNS = 1  # eager runs on the side stream before capture
 
+# program name -> {"captures": n, "replays": n, "capture_s": seconds} of its StaticCalls
+PROGRAMS: defaultdict = defaultdict(lambda: {"captures": 0, "replays": 0, "capture_s": 0.0})
 
-def wanted(graph, device) -> bool:
-    """Whether a step on ``device`` runs as a captured graph (module docstring)."""
+
+def reset_programs() -> None:
+    PROGRAMS.clear()
+
+
+def wanted(graph, device, mesh=None) -> bool:
+    """Whether a step on ``device`` runs as a captured graph (module docstring); under a ``mesh``
+    it runs eagerly (its collectives are not captured), and ``graph=True`` with one raises."""
+    if mesh is not None:
+        if graph:
+            raise ValueError("graph=True with a mesh: the mesh runs eagerly (its collectives are not captured)")
+        return False
     cuda = torch.device(device).type == "cuda"
     if graph is None:
         return cuda
@@ -53,6 +79,11 @@ class Pool:
         self.device = torch.device(device)
         self.handle = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(self.device)
+
+    def bytes(self) -> int:
+        """Device memory the pool's segments hold now (``torch.cuda.memory_snapshot``)."""
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == tuple(self.handle))
 
 
 class Captured:
@@ -171,3 +202,66 @@ class StaticStep:
         for dst, src in zip(self.inputs, inputs):
             dst.copy_(src)
         return self.carry, self.captured.replay()
+
+
+def leaves(tree) -> list:
+    """The tensors of a tree of tuples (NamedTuples too), in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if tree is None:
+        return []
+    return [t for x in tree for t in leaves(x)]
+
+
+class StaticCall:
+    """``fn(*inputs) -> outputs`` recorded over static input buffers (module docstring).
+
+    ``inputs`` (a tree of tensors) are copied into buffers of the call's own at
+    construction, and the program is captured there, registered with
+    ``generators`` (each left where it was before the capture's eager warm-up
+    run drew from it). A call copies its inputs in, replays, and returns the
+    static outputs: the next call overwrites them, so a caller copies out what
+    it keeps (a ``HostCopy`` started right after the call, on the same stream,
+    reads them before any later replay can run).
+    """
+
+    def __init__(self, fn, inputs, device, name: str, pool: Pool | None = None, generators=()):
+        self.name = name
+        self.inputs = static_copy(tuple(inputs))
+        self.pool = pool if pool is not None else Pool(device)
+        states = [gen.get_state() for gen in generators]
+        t = time.perf_counter()
+        self.captured = capture(lambda: fn(*self.inputs), device, self.pool, generators)
+        for gen, state in zip(generators, states):
+            gen.set_state(state)
+        self.capture_s = time.perf_counter() - t  # warm-up run, capture and instantiation
+        PROGRAMS[name]["captures"] += 1
+        PROGRAMS[name]["capture_s"] += self.capture_s
+
+    def __call__(self, *inputs):
+        refuse_nan_debug()
+        copy_into(self.inputs, inputs)
+        PROGRAMS[self.name]["replays"] += 1
+        return self.captured.replay()
+
+
+class ByShape:
+    """One ``StaticCall`` of ``fn`` per shape of its inputs, captured at the first call of that shape
+    (or ahead of it by ``capture``), each with a pool of its own."""
+
+    def __init__(self, fn, device, name: str, generators=()):
+        self.fn, self.device, self.name, self.generators = fn, torch.device(device), name, tuple(generators)
+        self.calls: dict = {}
+
+    @staticmethod
+    def _key(inputs) -> tuple:
+        return tuple((tuple(t.shape), t.dtype) for t in leaves(inputs))
+
+    def capture(self, *inputs) -> StaticCall:
+        key = self._key(inputs)
+        if key not in self.calls:
+            self.calls[key] = StaticCall(self.fn, inputs, self.device, self.name, generators=self.generators)
+        return self.calls[key]
+
+    def __call__(self, *inputs):
+        return self.capture(*inputs)(*inputs)

@@ -4,8 +4,10 @@ Device -> host (``HostCopy``, the reference's ``copy_to_host_async``): on a
 CUDA tensor the copy goes ``non_blocking`` into pinned host memory on the
 current stream, and a CUDA event is recorded right after it. ``numpy()``
 waits on that event before the buffers are read: a non-blocking copy read
-without it gives stale data and no error. On the CPU the tensors are read
-as they are.
+without it gives stale data and no error. On the CPU the tensors are cloned
+at construction: the copy holds the values they had then, as a CUDA copy
+holds the values they had at that point of the stream, whatever later writes
+them (a CUDA graph's static outputs are overwritten by its next replay).
 
 Host -> device (``upload``): a copy from pageable host memory synchronises
 the stream (the host waits until the device has drained its queue), so a
@@ -32,7 +34,7 @@ class HostCopy:
     def __init__(self, *tensors: torch.Tensor):
         cuda = [t.device.type == "cuda" for t in tensors]
         if not any(cuda):
-            self._host, self._event = tensors, None
+            self._host, self._event = tuple(t.clone() for t in tensors), None
             return
         if not all(cuda):
             raise ValueError("HostCopy: tensors on more than one kind of device")
