@@ -8,7 +8,10 @@ factories of odometry.pipeline, captured in each run's warm-up), and on the
 refined path also solves, verifies, associates and describes through them
 (the refiner's window solve and verification round, the keyframe association
 and global descriptor, captured in the refiner's warm-up), except where
-``graph=False`` is named and on the mesh (phases 11-12), which stays eager.
+``graph=False`` is named. Under a mesh each rank captures its own: over NCCL
+(phase 11) the sharded entry points and the step, their collectives inside
+the graph; over gloo (phase 12) the step and the sharded solve stay eager by
+rule and the programs without a collective are graphs.
 
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. the card's name and power limit (needs CUDA);
@@ -94,8 +97,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      times.txt, 8-bit PNGs of rendered frames) through ``StereoSequence`` and
      ``run --data``, whose poses must equal the same frames fed from memory;
      and ``Undistorter`` on a staged frame against the CPU (1e-5; the identity
-     model returns its input). Figures are asserted only where matplotlib is
-     installed. Also ``run --mesh 1,1`` (passes, in process) and ``run --mesh
+     model returns its input), its warp a CUDA graph (``undistort_warp``)
+     equal to ``graph=False`` bit for bit. Figures are asserted only where
+     matplotlib is installed. Also ``run --mesh 1,1`` (passes, in process) and ``run --mesh
      2,2`` (exits 2 and names the number of cards);
  11. the mesh over NCCL, one rank (NCCL refuses two ranks on one card): a
      world of one on the card, a (1, 1) mesh, and the four sharded entry points
@@ -105,7 +109,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      single-device function bit for bit, with its collectives real NCCL calls on
      the current stream, and under ``torch.cuda.set_sync_debug_mode("error")``
      none may make the host wait. Prints the collectives per call and the ms
-     between CUDA events of each sharded call beside the unsharded one;
+     between CUDA events of each sharded call beside the unsharded one. Then
+     each of the four captured as a ``graphs.StaticCall``: its replay equal to
+     the eager sharded call bit for bit, the collectives each replay accounts
+     equal to the eager call's and to what the capture recorded, no host wait
+     in a replay, and in the profiler's trace of one replay no host launch but
+     the one ``cudaGraphLaunch`` (and a registered generator's two fills before
+     it), every kernel launched by it; capture seconds and ms per replay beside
+     the eager call's. (NCCL runs a world of one without a kernel of its own;
+     NCCL's kernels under ``cudaGraphLaunch`` are read with a card per rank,
+     ``tools/profile_torch_step.py --mesh D,M --cards``.) Last, ``run_sequence`` over the
+     30-frame feed on the (1, 1) NCCL mesh, its step captured, bit-equal to
+     the single-process graphed run at ``fused_group=1`` (a mesh steps frame
+     by frame; a 2-frame group's batched detection differs in the last bits);
  12. the mesh as four ranks that SHARE the card over gloo (dist.mesh.launch,
      ``backend="gloo"``: every collective is staged through pinned host memory):
      ``run_sequence(mesh=)`` on a (2, 2) mesh over the 30-frame feed at the
@@ -114,7 +130,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      0's bit for bit, the meshed plain run is within 2e-2 m of phase 4's run
      with equal pose_ok and ATE within 0.02 m, K1 and K2 were launched on every
      rank at a detection batch of ONE image, and the BA run has the
-     single-process run's keyframes and at least one accepted solve. A rank that
+     single-process run's keyframes and at least one accepted solve, captured
+     and replayed its keyframe association on every rank (``graphs.PROGRAMS``:
+     no collective in it, so a graph under gloo too, while the step and the
+     sharded solve stay eager), and equals the same run with ``graph=False``
+     bit for bit on every rank. A rank that
      dies or hangs fails the phase with its stderr. The ms per frame printed
      beside the single-process run's are the overhead of the integration on one
      shared card, not scaling.
@@ -250,6 +270,11 @@ PROFILE_PLAIN_FRAMES, PROFILE_REFINED_FRAMES = 10, 20  # phase 15: the profiles'
 # The refined path's programs captured apart from the step (utils.graphs.StaticCall names): phase 5 and 15.
 REFINER_PROGRAMS = ("window_solve", "verification_round", "global_descriptor", "keyframe_association")
 REPO = os.path.dirname(os.path.abspath(__file__))
+# The host's launching calls, as the profiler names the CUDA runtime and driver calls.
+HOST_LAUNCH_CALLS = {
+    "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+    "cudaMemcpyAsync", "cudaMemsetAsync", "cudaMemcpy", "cudaMemset",
+}
 
 KERNELS = {
     "extrema_scores": dict(
@@ -850,14 +875,24 @@ def shell_surface(feed, cfg: PipelineConfig, device, tmp: str, run_to_run: float
     # (undistortion of a staged frame)
     img = feed.frame(0)[0].float() / 255.0
     model = undistort.DistortionModel(k1=-0.05, k2=0.002, p1=1e-4, p2=-1e-4)
-    on_card = undistort.Undistorter(feed.calib, model, device=device)(img)
+    before = dict(graphs.PROGRAMS["undistort_warp"])
+    und = undistort.Undistorter(feed.calib, model, device=device)
+    on_card = und(img)
+    right = und(feed.frame(0)[1].float() / 255.0)  # the graph's second replay: the first result is the caller's copy
+    eager = undistort.Undistorter(feed.calib, model, device=device, graph=False)
     on_cpu = undistort.Undistorter(feed.calib, model, device="cpu")(img.cpu())
     d_und = float((on_card.cpu() - on_cpu).abs().max())
     if undistort.Undistorter(feed.calib, device=device)(img) is not img:
         raise AssertionError("the identity model did not return its input")
     if not (d_und <= UNDISTORT_TOL and on_card.device.type == "cuda" and float((on_card - img).abs().max()) > 1e-3):
         raise AssertionError(f"Undistorter on the card differs from the CPU by {d_und}")
-    print(f"     Undistorter (k1 {model.k1}) on a staged frame: card against CPU {d_und:.2e}; {time.perf_counter() - t:.1f} s")
+    warp = {k: graphs.PROGRAMS["undistort_warp"][k] - before[k] for k in ("captures", "replays")}
+    if not (isinstance(und._warp, graphs.ByShape) and warp == {"captures": 1, "replays": 2}):
+        raise AssertionError(f"the Undistorter's warp was not one captured graph replayed twice: {warp}")
+    if not (torch.equal(on_card, eager(img)) and torch.equal(right, eager(feed.frame(0)[1].float() / 255.0))):
+        raise AssertionError("the graphed Undistorter differs from graph=False")
+    print(f"     Undistorter (k1 {model.k1}) on a staged frame: graphed ({warp}) equal to graph=False bit for bit, card "
+          f"against CPU {d_und:.2e}; {time.perf_counter() - t:.1f} s")
 
 
 def ransac_problem(cfg: PipelineConfig, device):
@@ -931,6 +966,14 @@ def nccl_one_rank(feed, cfg: PipelineConfig, device, tmp: str) -> None:
     """Phase 11: the four sharded entry points on a (1, 1) mesh over NCCL, each against its
     single-device function, bit for bit and without a host wait."""
     torch.distributed.init_process_group("nccl", init_method=f"file://{tmp}/nccl_store", world_size=1, rank=0)
+    try:
+        nccl_world_of_one(feed, cfg, device, tmp)
+    finally:
+        # A process that exits with an NCCL group up waits on its store for good: leave the world first.
+        torch.distributed.destroy_process_group()
+
+
+def nccl_world_of_one(feed, cfg: PipelineConfig, device, tmp: str) -> None:
     mesh = mesh_mod.make_mesh(MeshConfig(data=1, model=1), device=device)
     backends = {ax: torch.distributed.get_backend(mesh.get_group(ax)) for ax in ("data", "model")}
     if set(backends.values()) != {"nccl"}:
@@ -993,7 +1036,77 @@ def nccl_one_rank(feed, cfg: PipelineConfig, device, tmp: str) -> None:
     if not (bool(est.ok) and d_t < 0.1 and float(res.cost) < 0.05 * float(res.cost0)):
         raise AssertionError(f"sharded RANSAC {d_t} m from the true pose, or the window solve did not converge: {res.cost0} -> {res.cost}")
     print(f"     sharded RANSAC {d_t:.4f} m from the true relative pose; window cost {float(res.cost0):.1f} -> {float(res.cost):.1f}")
-    torch.distributed.destroy_process_group()
+
+    # (the same four captured: each a StaticCall whose graph holds its collectives)
+    gen = torch.Generator(device=device)
+    graphed = {
+        "estimate_world_pose_sharded": (
+            lambda: ransac_sharded.estimate_world_pose_sharded(px, X, mask, calib, cfg.ransac, gen, mesh), (gen,)),
+        "solve_window_sharded": (lambda: ba_sharded.solve_window_sharded(prob, calib, cfg.ba, mesh), ()),
+        "optimize_sharded": (lambda: pose_graph_sharded.optimize_sharded(graph, mesh, iters=graph_iters), ()),
+        "detect_batch": (lambda: frontend_batch.detect_batch(imgs, cfg.sift, mesh), ()),
+    }
+    for name, (fn, gens) in graphed.items():
+        gen.manual_seed(7)
+        t_cap = time.perf_counter()
+        call = graphs.StaticCall(fn, (), device, name, generators=gens)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t_cap
+        gen.manual_seed(7)
+        got = [t.clone() for t in call()]
+        gen.manual_seed(7)
+        want = list(fn())
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{name}: the replay differs from the eager sharded call")
+        mesh_mod.reset_collectives()
+        torch.cuda.set_sync_debug_mode("error")  # a host wait inside the replay raises
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        replayed = dict(mesh_mod.COLLECTIVES)
+        mesh_mod.reset_collectives()
+        fn()
+        if not (replayed == mesh_mod.COLLECTIVES == call.captured.collectives and sum(replayed.values()) >= 1):
+            raise AssertionError(f"{name}: collectives per replay {replayed}, eager {mesh_mod.COLLECTIVES}, "
+                                 f"captured {call.captured.collectives}")
+        by, copies, host = replay_trace(call, os.path.join(tmp, "nccl_replay.json"))
+        # Besides the one cudaGraphLaunch, only a registered generator's prologue (its seed and offset
+        # written into the graph's device scalars: two fills) may launch anything.
+        prologue = [k for k, v in by.items() if v != {"cudaGraphLaunch"}]
+        extra = sum(v for k, v in host.items() if k != "cudaGraphLaunch")
+        if (host.get("cudaGraphLaunch") != 1 or extra > 2 * len(gens)
+                or not all("fill" in k.lower() for k in prologue)):
+            raise AssertionError(f"{name}: the replay's host launches {host}, its kernels launched by {by}")
+        ms_graph, ms_eager = median_ms(call, reps=5), median_ms(fn, reps=5)
+        print(f"     {name} captured ({capture_s:.3f} s): replay equal to the eager call bit for bit, no host wait; "
+              f"collectives per replay {replayed} = eager = captured; the replay's trace: host launches {host}, "
+              f"{len(by) - len(prologue)} kernels by cudaGraphLaunch, {len(prologue)} before it, {len(copies)} copies; {ms_graph:.3f} ms per replay "
+              f"against {ms_eager:.3f} ms eager")
+    print("     (NCCL runs a world of one without a kernel of its own: its all-gather is a device-to-device copy, an "
+          "all-reduce in place nothing; NCCL kernels under cudaGraphLaunch need two cards: tools/profile_torch_step.py --cards)")
+
+    # (run_sequence on the (1, 1) mesh: no axis > 1, no collective, so its step is captured)
+    captures = []
+    capture = graphs.capture
+
+    def counting(*a, **k):
+        captures.append(1)
+        return capture(*a, **k)
+
+    one = dataclasses.replace(cfg, fused_group=1)
+    single = runner.run_sequence(feed, one, device=device)
+    graphs.capture = counting
+    try:
+        meshed = runner.run_sequence(feed, cfg, mesh=mesh, device=device)
+    finally:
+        graphs.capture = capture
+    require_bit_equal(meshed, single, "run_sequence on the (1, 1) NCCL mesh against the single-process run at fused_group=1")
+    if len(captures) != 1:
+        raise AssertionError(f"the (1, 1) mesh's run captured {len(captures)} graphs, expected its step's one")
+    print(f"     run_sequence on the (1, 1) NCCL mesh, {N_FRAMES} frames: its step captured once, bit-equal to the "
+          f"single-process graphed run at fused_group=1; {meshed.per_frame_ms:.3f} against {single.per_frame_ms:.3f} ms/frame")
 
 
 class ArrayFeed:
@@ -1034,12 +1147,21 @@ def mesh_rank(mesh, device, frames_path: str, gt_poses, use_ba: bool) -> dict:
     batches.clear()
     kernels.reset_launches()
     mesh_mod.reset_collectives()
+    graphs.reset_programs()
     res = runner.run_sequence(feed, cfg, mesh=mesh, device=device, use_ba=use_ba)
-    return dict(
+    out = dict(
         poses=res.poses, pose_ok=res.pose_ok, n_inliers=res.n_inliers, per_frame_ms=res.per_frame_ms,
         launches=dict(kernels.LAUNCHES), collectives=dict(mesh_mod.COLLECTIVES), batches=sorted(set(batches)),
         n_keyframes=res.refine_stats.get("n_keyframes"), ba_solves=res.refine_stats.get("ba_solves"),
+        programs={k: {n: v[n] for n in ("captures", "replays")} for k, v in graphs.PROGRAMS.items()},
     )
+    if use_ba:
+        # Over gloo the step and the sharded solve are eager by rule; the association is still a graph.
+        eager = runner.run_sequence(feed, cfg, mesh=mesh, device=device, use_ba=use_ba, graph=False)
+        out["eager"] = {k: getattr(eager, k) for k in ("poses", "rel_poses", "n_inliers", "n_tracks", "pose_ok", "landmarks")}
+        out["eager"]["refine"] = [eager.refine_stats[k] for k in ("n_keyframes", "ba_solves")]
+        out["graphed"] = {k: getattr(res, k) for k in ("rel_poses", "n_tracks", "landmarks")}
+    return out
 
 
 def shared_card_mesh(feed, feed5, cfg: PipelineConfig, device, single: runner.RunResult, gt, tmp: str, launches_by_path: dict) -> None:
@@ -1095,6 +1217,18 @@ def shared_card_mesh(feed, feed5, cfg: PipelineConfig, device, single: runner.Ru
     )
     if m["n_keyframes"] != one.refine_stats["n_keyframes"] or not m["ba_solves"] >= 1 or not d < MESH_POSE_TOL_M:
         raise AssertionError("the meshed BA run does not have the single-process run's keyframes, or no solve was accepted")
+    for r, o in enumerate(per_rank):
+        assoc = o["programs"].get("keyframe_association", {})
+        if not (assoc.get("captures", 0) > 0 and assoc.get("replays", 0) > 0) or "window_solve" in o["programs"]:
+            raise AssertionError(f"rank {r}: the association is not a graph, or the gloo-sharded solve is: {o['programs']}")
+        graphed = dict(o["graphed"], poses=o["poses"], n_inliers=o["n_inliers"], pose_ok=o["pose_ok"])
+        for k, v in o["eager"].items():
+            want = [o["n_keyframes"], o["ba_solves"]] if k == "refine" else graphed[k]
+            if not np.array_equal(v, want):
+                raise AssertionError(f"mesh (1, 2) with BA, rank {r}: {k} with graph=False differs from the graphed run's")
+    print(f"     the same with graph=False: equal bit for bit on every rank (poses, rel poses, n_inliers, n_tracks, pose_ok, "
+          f"landmarks, keyframes, solves); programs captured and replayed per rank {[o['programs'] for o in per_rank]} "
+          f"(the step and the sharded solve reduce over gloo: eager by rule)")
 
 
 def bench_surface(feed5, cfg: PipelineConfig, device, ate4: float, launches_by_path: dict) -> None:
@@ -1196,6 +1330,27 @@ def reference_scale_tools(feed5, cfg: PipelineConfig, device, launches_by_path: 
         raise AssertionError(f"vo_lc verified or closed a loop with no candidate possible, or left vo: {lc}")
     if min(launches_by_path["bigrun"][k] for k in KERNELS) <= 0:
         raise AssertionError(f"run_configs did not launch both kernels: {launches_by_path['bigrun']}")
+
+
+def replay_trace(fn, path: str) -> tuple:
+    """fn() under torch.profiler -> ({device kernel: the host calls that launched it}, [names of the
+    device copies and fills], {host launching call: count})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        tr = json.load(f)
+    evs = tr["traceEvents"] if isinstance(tr, dict) else tr
+    copies = sorted(e["name"] for e in evs if e.get("cat") in ("gpu_memcpy", "gpu_memset"))
+    host: dict = {}
+    for e in evs:
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and e["name"] in HOST_LAUNCH_CALLS:
+            host[e["name"]] = host.get(e["name"], 0) + 1
+    return launched_by(path), copies, host
 
 
 def launched_by(trace_path: str) -> dict:

@@ -234,8 +234,10 @@ def test_graph_true_raises_on_the_cpu(seqs):
             make(calib, cfg, graph=True)
     with pytest.raises(ValueError, match="graph=True needs a CUDA device"):
         p_runner.run_sequence(seqs[0], cfg, n_frames=2, device="cpu", graph=True)
-    with pytest.raises(ValueError, match="graph=True with a mesh"):
-        p_pipe.make_fused_loop_step(calib, cfg, mesh=object(), graph=True)
+    # A step that reduces over gloo is eager by rule, and graph=True for it raises and names NCCL
+    # (the meshed step on gloo ranks: tests/test_torch_mesh_graphs.py).
+    with pytest.raises(ValueError, match="graph=True with a mesh whose collectives go over gloo.*NCCL"):
+        graphs.wanted(True, calib.P1.device, ("gloo",))
 
 
 def test_graphed_step_refuses_nan_debug(seqs, static):

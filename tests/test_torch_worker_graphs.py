@@ -516,11 +516,13 @@ def test_graph_true_raises_on_the_cpu_and_with_a_mesh():
         p_ref.RefinerWorker(calib, cfg, use_ba=True, use_loop_closure=True, device="cpu", graph=True)
     with pytest.raises(ValueError, match="graph=True needs a CUDA device"):
         p_runner._Keyframes(None, cfg, "cpu", use_ba=True, graph=True)
-    with pytest.raises(ValueError, match="graph=True with a mesh"):
-        p_bar.WindowedBA(calib, cfg.ba, device="cpu", mesh=object(), graph=True)
-    with pytest.raises(ValueError, match="graph=True with a mesh"):
-        p_ref.RefinerWorker(calib, cfg, use_ba=True, use_loop_closure=False, device="cpu", mesh=object(), graph=True)
-    # graph=None on the CPU, and any mesh, are eager by rule.
+    # A program that reduces over gloo (a sharded solve on ranks that share a card) is eager by rule,
+    # and graph=True for it raises and names NCCL (WindowedBA and RefinerWorker on gloo ranks:
+    # tests/test_torch_mesh_graphs.py).
+    for backends in (("gloo",), ("nccl", "gloo")):
+        with pytest.raises(ValueError, match="graph=True with a mesh whose collectives go over gloo.*NCCL"):
+            graphs.wanted(True, "cpu", backends)
+    # graph=None on the CPU is eager by rule.
     assert p_bar.WindowedBA(calib, cfg.ba, device="cpu")._graphed is False
     assert p_lc.LoopCloser(calib, cfg.loop, device="cpu")._rounds is None
 

@@ -3,7 +3,8 @@
     python tools/profile_torch_step.py [--frames 30] [--eager]
     python tools/profile_torch_step.py --refined [--eager]
     python tools/profile_torch_step.py --exact
-    python tools/profile_torch_step.py --mesh 1,2 [--ba]
+    python tools/profile_torch_step.py --mesh 1,2 [--ba] [--eager]
+    python tools/profile_torch_step.py --mesh 2,2 --cards [--ba] [--repeats 5]
 
 Renders the synthetic KITTI-00 feed (30 frames, 6000 landmarks, seed 0, as
 chip_smoke.py), stages it on the card and runs odometry.runner.run_sequence at
@@ -48,19 +49,27 @@ hand-written kernels (the exact path launches K1 once and K2 never), the
 kernels that take the most device time, and peak device memory.
 
 With ``--mesh DATA,MODEL`` it profiles ``run_sequence(mesh=)`` on DATA * MODEL
-ranks that SHARE the card over gloo (dist.mesh.launch; every collective is
-staged through pinned host memory): on rank 0 the untraced ms/frame beside the
-single-process run frame by frame, and under torch.profiler that process's
-device busy time and idle share, the number of collectives per frame, the host
-time spent inside them (the stream wait, the host round trip and the wait for
-the peers), and the device time of NCCL kernels (none under gloo) and of all
-device copies (the staging among them). ``--ba`` adds window BA. The ratio of
-the two ms/frame figures is the overhead of the integration on one shared
-card and says nothing about a card per rank.
+ranks (dist.mesh.launch) that SHARE the card over gloo (every collective is
+staged through pinned host memory, so the step and a sharded solve stay
+eager and only the programs without a collective are graphs), or, with
+``--cards``, that have a card each over NCCL (DATA * MODEL cards; every
+program a graph, its collectives inside it), once graphed and once with
+``graph=False``, whose results must equal bit for bit on every rank (exit 1
+otherwise). ``--ba`` adds window BA over the 199-frame out-and-back feed (the
+plain mesh runs ``--frames`` of the synthetic feed). Per rank: a warm run,
+``--repeats`` untraced runs (ms/frame: median and spread), and one run under
+torch.profiler: over the frame loop, device busy ms and idle share, host
+launches per frame (by thread), collectives per frame, the device time of
+NCCL kernels (none under gloo) and of device copies; and the seconds of each
+capture and the bytes of the graph pools. Beside them the single-process run
+frame by frame on the first card (median of the same repeats). Under gloo
+the ratio of the ms/frame figures is the overhead of the integration on one
+shared card; with ``--cards`` each rank has its card, and every figure names
+the card count.
 
 The summary is also written as JSON to chiprun_out/profile_torch_step.json
 (``_eager`` before ``.json`` with ``--eager``; profile_torch_step_refined.json with ``--refined``, profile_torch_step_exact.json
-with ``--exact``, profile_torch_step_mesh.json with ``--mesh``).
+with ``--exact``, profile_torch_step_mesh_<D>x<M>[_ba][_cards].json with ``--mesh``).
 """
 from __future__ import annotations
 
@@ -80,6 +89,7 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from chip_smoke import HOST_LAUNCH_CALLS  # noqa: E402  (the host's launching calls, as the profiler names them)
 from vo_tpu_torch.config import PipelineConfig  # noqa: E402
 from vo_tpu_torch.frontend import kernels  # noqa: E402
 from vo_tpu_torch.frontend.pyramid import build_pyramid  # noqa: E402
@@ -90,11 +100,6 @@ from vo_tpu_torch.odometry import landmarks, pipeline, runner  # noqa: E402
 
 # Device kernel names of the hand-written kernels (csrc/*.cu), as the profiler reports them.
 HAND_WRITTEN = {"extrema_scores_kernel": "K1 extrema_scores", "bin_maps_kernel": "K2 bin_maps"}
-# The host's launching calls, as the profiler names the CUDA runtime and driver calls.
-HOST_LAUNCH_CALLS = {
-    "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
-    "cudaMemcpyAsync", "cudaMemsetAsync", "cudaMemcpy", "cudaMemset",
-}
 
 
 def hand_written_ms(by_name) -> dict:
@@ -120,18 +125,20 @@ def traced(fn, reps: int):
     return union_ms(evs) / reps, len(evs) / reps, by_name
 
 
-def frame_loop_trace(run, n_frames: int):
+def frame_loop_trace(run, n_frames: int, trace_path: str | None = None):
     """run() (a run_sequence call) under torch.profiler -> (its result, per-frame figures of its frame
     loop: device busy ms (the union over streams), device launches, host launches and the calls
     among them, and the host launches by thread: ``main`` the thread that ran the frame loop,
     ``worker`` every other one, the refiner's). Only the span ``runner.FRAME_LOOP`` counts: the
     warm-up and the captures before it are left out, and so is the device work queued before the
     span began; ``worker_host_launches_after_loop`` counts the launches other threads made after it
-    (the refiner draining its last keyframes)."""
+    (the refiner draining its last keyframes). ``trace_path`` also writes the chrome trace there."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         res = run()
         torch.cuda.synchronize()
+    if trace_path is not None:
+        prof.export_chrome_trace(trace_path)
     evs = prof.events()
     loop = next(e for e in evs if e.name == runner.FRAME_LOOP and e.device_type != torch.autograd.DeviceType.CUDA)
     span = loop.time_range
@@ -190,7 +197,9 @@ def main() -> int:
     ap.add_argument("--refined", action="store_true", help="profile the refined path (BA + loop closure)")
     ap.add_argument("--exact", action="store_true", help="profile a detection call on the exact-SIFT path")
     ap.add_argument("--mesh", default=None, metavar="DATA,MODEL", help="profile run_sequence(mesh=) on ranks sharing the card over gloo")
-    ap.add_argument("--ba", action="store_true", help="with --mesh: window BA on (the worker's collectives too)")
+    ap.add_argument("--ba", action="store_true", help="with --mesh: window BA on (the worker's collectives too), over the 199-frame out-and-back feed")
+    ap.add_argument("--cards", action="store_true", help="with --mesh: one NCCL rank per card (DATA * MODEL cards), graphed and eager")
+    ap.add_argument("--repeats", type=int, default=5, help="with --mesh: timed runs after the warm run")
     ap.add_argument("--eager", action="store_true", help="profile the eager step (graph=False), not the captured graphs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -209,7 +218,8 @@ def main() -> int:
     if args.exact:
         return profile_exact(cfg, dev, card, args.reps)
     if args.mesh:
-        return profile_mesh(cfg, dev, card, tuple(int(x) for x in args.mesh.split(",")), args.frames, args.ba)
+        shape = tuple(int(x) for x in args.mesh.split(","))
+        return profile_mesh(cfg, dev, card, shape, args.frames, args.ba, args.cards, graph, args.repeats)
     seq = synthetic.kitti_synthetic_sequence(n_frames=args.frames, n_landmarks=6000, seed=0)
     feed = runner.StagedSequence(seq, args.frames, dev)
 
@@ -318,90 +328,144 @@ def profile_exact(cfg: PipelineConfig, dev, card: str, reps: int) -> int:
     return 0
 
 
-def mesh_rank(mesh, device, frames_path: str, gt_poses, use_ba: bool):
-    """One rank of ``--mesh``: a warm run, an untraced run and (traced on rank 0) a third."""
-    from chip_smoke import ArrayFeed
+def mesh_rank(mesh, device, frames_path: str, gt_poses, use_ba: bool, graph, repeats: int):
+    """One rank of ``--mesh``: a warm run, ``repeats`` untraced runs and one traced run (every rank runs
+    all of them: a rank that skipped a run holding a collective would leave its peers waiting)."""
+    import tempfile
+
+    from chip_smoke import ArrayFeed, launched_by
 
     from vo_tpu_torch.dist import mesh as mesh_mod
     from vo_tpu_torch.io import kitti
+    from vo_tpu_torch.utils import graphs
 
     calib = kitti.load_stereo_calib(os.path.join(synthetic.DEFAULT_KITTI_ROOT, "00"))
     seq = ArrayFeed(frames_path, calib, gt_poses)
     n = len(seq)
     feed = runner.StagedSequence(seq, n, device)
     cfg = PipelineConfig()
+    # Each capture's seconds (warm-up run, capture, instantiation) and the bytes of every graph pool after it.
+    captures, pool_bytes = [], [0]
+    capture = graphs.capture
+
+    def timed_capture(*a, **k):
+        torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        c = capture(*a, **k)
+        torch.cuda.synchronize(device)
+        captures.append(time.perf_counter() - t)
+        pool_bytes[0] = max(pool_bytes[0], sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                                               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0)))
+        return c
+
+    graphs.capture = timed_capture
 
     def run(warmup=True):
-        return runner.run_sequence(feed, cfg, mesh=mesh, device=device, use_ba=use_ba, warmup=warmup)
+        return runner.run_sequence(feed, cfg, mesh=mesh, device=device, use_ba=use_ba, warmup=warmup, graph=graph)
 
     run()  # warm
-    res = run()
+    timed = [run() for _ in range(repeats)]
+    ms = sorted(r.per_frame_ms for r in timed)
     mesh_mod.reset_collectives()
-    if torch.distributed.get_rank() != 0:
-        run(warmup=False)
-        return None
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run(warmup=False)
-        torch.cuda.synchronize()
-    evs = device_events(prof)
-    ranges = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("vo_tpu_torch.dist.")]
-    busy = union_ms(evs)
-    summary = dict(
+    with tempfile.TemporaryDirectory() as tmp:
+        # Which host call launched each NCCL kernel, read from the chrome trace of a graphed run (an
+        # eager run's trace, thousands of launches a frame, is not written).
+        trace = os.path.join(tmp, "trace.json") if graph is None else None
+        res, loop = frame_loop_trace(lambda: run(warmup=False), n, trace)
+        nccl_launched_by = {} if trace is None else {
+            k[:80]: sorted(v) for k, v in launched_by(trace).items() if "nccl" in k.lower()}
+    by_name = loop.pop("kernel_ms_per_frame")
+    busy = loop["device_busy_ms_per_frame"]
+    median = ms[len(ms) // 2]
+    return dict(
+        rank=torch.distributed.get_rank(),
+        device=str(device),
         mesh=mesh_mod.mesh_shape(mesh),
         backend=torch.distributed.get_backend(),
         frames=n,
         use_ba=use_ba,
-        wall_ms_per_frame=res.per_frame_ms,
-        device_busy_ms_per_frame=busy / n,
-        device_idle_share=1.0 - (busy / n) / res.per_frame_ms,
-        launches_per_frame=len(evs) / n,
+        graphed=graph is None,
+        wall_ms_per_frame_runs=ms,
+        wall_ms_per_frame=median,
+        wall_ms_per_frame_spread=ms[-1] - ms[0],
+        device_idle_share=1.0 - busy / median,
+        **loop,
         collectives=dict(mesh_mod.COLLECTIVES),
         collectives_per_frame=sum(mesh_mod.COLLECTIVES.values()) / n,
-        collective_host_ms_per_frame=sum(e.time_range.elapsed_us() for e in ranges) / 1000.0 / n,
-        collective_ranges_traced=len(ranges),
-        nccl_device_ms_per_frame=sum(e.time_range.elapsed_us() for e in evs if "nccl" in e.name.lower()) / 1000.0 / n,
-        copies_device_ms_per_frame=sum(e.time_range.elapsed_us() for e in evs if "memcpy" in e.name.lower()) / 1000.0 / n,
+        nccl_device_ms_per_frame=sum(v for k, v in by_name.items() if "nccl" in k.lower()),
+        nccl_kernels_launched_by=nccl_launched_by,
+        copies_device_ms_per_frame=sum(v for k, v in by_name.items() if "memcpy" in k.lower()),
+        capture_s=captures,
+        pool_bytes=pool_bytes[0],
         refine_stats={k: v for k, v in res.refine_stats.items() if k in ("n_keyframes", "ba_solves", "main_wait_s")},
+        result={k: getattr(res, k) for k in ("poses", "rel_poses", "n_inliers", "n_tracks", "pose_ok", "landmarks")},
     )
-    return summary
 
 
-def profile_mesh(cfg: PipelineConfig, dev, card: str, shape, n: int, use_ba: bool) -> int:
+def profile_mesh(cfg: PipelineConfig, dev, card: str, shape, n: int, use_ba: bool, cards: bool, graph, repeats: int) -> int:
+    """``--mesh``: the ranks share the card over gloo, or (``cards``) each has a card of its own (NCCL);
+    with a card per rank each rank runs graphed and with ``graph=False``, which must be equal."""
     import tempfile
 
-    from chip_smoke import save_frames
+    from chip_smoke import OUT_FRAMES, OutAndBackFeed, save_frames
 
     from vo_tpu_torch.dist import mesh as mesh_mod
 
-    seq = synthetic.kitti_synthetic_sequence(n_frames=n, n_landmarks=6000, seed=0)
-    feed = runner.StagedSequence(seq, n, dev)
+    world = shape[0] * shape[1]
+    if cards and torch.cuda.device_count() < world:
+        print(f"profile_torch_step: --mesh {shape[0]},{shape[1]} --cards needs {world} cards, have "
+              f"{torch.cuda.device_count()}", file=sys.stderr)
+        return 2
+    if use_ba:  # the refined feed: the 199-frame out-and-back
+        feed = OutAndBackFeed(OUT_FRAMES, dev)
+        gt = feed.gt_poses
+    else:
+        seq = synthetic.kitti_synthetic_sequence(n_frames=n, n_landmarks=6000, seed=0)
+        feed, gt = runner.StagedSequence(seq, n, dev), np.asarray(seq.gt_poses)
+    n = len(feed)
     kw = dict(device=dev, use_ba=use_ba)
     one_cfg = dataclasses.replace(cfg, fused_group=1)  # the mesh steps frame by frame: compare like with like
     runner.run_sequence(feed, one_cfg, **kw)  # warm
-    single = runner.run_sequence(feed, one_cfg, **kw)
+    single = sorted(runner.run_sequence(feed, one_cfg, **kw).per_frame_ms for _ in range(repeats))
+    devices = [torch.device("cuda", i) for i in range(world)] if cards else dev
+    backend = None if cards else "gloo"
+    graphs_asked = (None, False) if cards else (graph,)
+    summary = dict(card=card, cards=world if cards else 1, frames=n, use_ba=use_ba,
+                   single_process_frame_by_frame_ms_per_frame_runs=single, runs={})
+    fields = ("poses", "rel_poses", "n_inliers", "n_tracks", "pose_ok", "landmarks")
+    first = None  # rank 0's result of the first run: every rank of every run must equal it
+    os.makedirs("chiprun_out", exist_ok=True)
+    out = f"profile_torch_step_mesh_{shape[0]}x{shape[1]}" + ("_ba" if use_ba else "") + ("_cards" if cards else "") + ".json"
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "frames.npy")
         save_frames(feed, n, path)
-        summary = mesh_mod.launch(
-            mesh_rank, shape, dev, backend="gloo", args=(path, np.asarray(seq.gt_poses), use_ba), timeout=600.0, threads=2
-        )[0]
-    summary.update(card=card, single_process_frame_by_frame_ms_per_frame=single.per_frame_ms)
-    print(
-        f"mesh {summary['mesh']} over {summary['backend']}, ranks sharing the card, {n} frames"
-        + (", window BA" if use_ba else "")
-        + f": {summary['wall_ms_per_frame']:.3f} ms/frame on rank 0 against {single.per_frame_ms:.3f} ms/frame single-process "
-        f"frame by frame (overhead of the integration on one shared card, not scaling); rank 0's device busy "
-        f"{summary['device_busy_ms_per_frame']:.3f} ms/frame, idle share {summary['device_idle_share']:.3f}, "
-        f"{summary['launches_per_frame']:.0f} launches/frame; collectives {summary['collectives']} "
-        f"({summary['collectives_per_frame']:.2f} per frame), {summary['collective_host_ms_per_frame']:.3f} ms/frame of host "
-        f"time inside them; device time of NCCL kernels {summary['nccl_device_ms_per_frame']:.4f} ms/frame, of all device "
-        f"copies {summary['copies_device_ms_per_frame']:.4f} ms/frame; refine_stats {summary['refine_stats']}"
-    )
-    os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "profile_torch_step_mesh.json"), "w") as f:
-        json.dump(summary, f, indent=1)
-    return 0
+        # Each run's figures are printed and written as they land: a later run that fails or hangs
+        # (its launch's time limit names the rank) leaves the earlier ones.
+        for g in graphs_asked:
+            name = "graphed" if g is None else "eager"
+            per_rank = mesh_mod.launch(mesh_rank, shape, devices, backend=backend, args=(path, gt, use_ba, g, repeats),
+                                       timeout=900.0, threads=2)
+            first = per_rank[0]["result"] if first is None else first
+            for r in per_rank:
+                print(
+                    f"mesh {r['mesh']} over {r['backend']}, rank {r['rank']} on {r['device']} ({summary['cards']} card(s)), "
+                    f"{name}, {n} frames" + (", window BA" if use_ba else "") + f": {r['wall_ms_per_frame']:.3f} ms/frame "
+                    f"(median of {repeats}, spread {r['wall_ms_per_frame_spread']:.3f}; single process frame by frame on one "
+                    f"card {single[len(single) // 2]:.3f}); device busy {r['device_busy_ms_per_frame']:.3f} ms/frame, idle "
+                    f"share {r['device_idle_share']:.3f}; host launches/frame {r['host_launches_per_frame']:.1f} "
+                    f"{r['host_launches_per_frame_by_thread']}; collectives/frame {r['collectives_per_frame']:.2f} "
+                    f"{r['collectives']}; NCCL device ms/frame {r['nccl_device_ms_per_frame']:.4f}, its kernels launched by "
+                    f"{r['nccl_kernels_launched_by']}; captures {len(r['capture_s'])} ({sum(r['capture_s']):.3f} s), pool "
+                    f"bytes {r['pool_bytes']}; refine_stats {r['refine_stats']}"
+                )
+                r["equal_to_the_first"] = all(np.array_equal(r.pop("result")[k], first[k]) for k in fields)
+            summary["runs"][name] = per_rank
+            summary["ranks_and_runs_bit_equal"] = all(r["equal_to_the_first"] for v in summary["runs"].values() for r in v)
+            print(f"every rank's result so far ({', '.join(summary['runs'])}) equal bit for bit: "
+                  f"{summary['ranks_and_runs_bit_equal']}")
+            with open(os.path.join("chiprun_out", out), "w") as f:
+                json.dump(summary, f, indent=1)
+    return 0 if summary["ranks_and_runs_bit_equal"] else 1
 
 
 def profile_refined(cfg: PipelineConfig, dev, card: str, graph) -> int:

@@ -93,43 +93,66 @@ def run(device_counts=(1, 2, 4), frame_batch=8, image_size=(128, 256), n_hyp=204
     return rows
 
 
-def _integrated_rank(mesh, device, n_frames, image_size):
+def _timed_runs(run, repeats: int):
+    """(the last result, ms per frame of each run): one run where ``repeats`` is 1, else a warm run
+    and ``repeats`` timed ones."""
+    if repeats > 1:
+        run()
+    runs = [run() for _ in range(repeats)]
+    return runs[-1], [r.per_frame_ms for r in runs]
+
+
+def _integrated_rank(mesh, device, n_frames, image_size, repeats=1):
     from ..config import PipelineConfig
     from ..io import synthetic
     from ..odometry import runner
 
     seq = synthetic.kitti_synthetic_sequence(n_frames=n_frames, n_landmarks=3000, seed=1, image_size=image_size)
-    res = runner.run_sequence(seq, PipelineConfig(), n_frames=n_frames, mesh=mesh, device=device)
-    return res.poses, res.per_frame_ms
+    res, ms = _timed_runs(
+        lambda: runner.run_sequence(seq, PipelineConfig(), n_frames=n_frames, mesh=mesh, device=device), repeats
+    )
+    return res.poses, ms
 
 
-def run_integrated(mesh_shape=(2, 2), n_frames=48, image_size=(188, 620), device=None, backend=None, timeout=1200.0):
+def run_integrated(mesh_shape=(2, 2), n_frames=48, image_size=(188, 620), device=None, backend=None, timeout=1200.0,
+                   repeats=1):
     """End-to-end PRODUCTION runner on a mesh (the --mesh CLI mode): the per-frame step with
     detection sharded on "data" and RANSAC hypothesis-sharded on "model", against the
     identical single-process run. Trajectory equivalence (max pose deviation < 2e-2) is
     reported as ``equivalent``; the two ms-per-frame figures are to be read as the module
-    docstring says."""
+    docstring says. ``device`` as ``mesh.launch`` takes it (a list: a card per rank, the
+    single-process run on the first); ``repeats`` > 1 times that many runs after a warm run, on
+    both sides, and reports their median and spread."""
     from ..config import PipelineConfig
     from ..io import synthetic
     from ..odometry import runner
     from ..utils.device import resolve
     from .mesh import launch
 
-    device = resolve(device)
+    devices = [resolve(d) for d in device] if isinstance(device, (list, tuple)) else resolve(device)
+    first = devices[0] if isinstance(devices, list) else devices
     seq = synthetic.kitti_synthetic_sequence(n_frames=n_frames, n_landmarks=3000, seed=1, image_size=image_size)
-    res1 = runner.run_sequence(seq, PipelineConfig(), n_frames=n_frames, progress=lambda i, s: None, device=device)
-    per_rank = launch(_integrated_rank, mesh_shape, device, backend, args=(n_frames, image_size), timeout=timeout, threads=None)
+    res1, ms1 = _timed_runs(
+        lambda: runner.run_sequence(seq, PipelineConfig(), n_frames=n_frames, progress=lambda i, s: None, device=first), repeats
+    )
+    per_rank = launch(_integrated_rank, mesh_shape, devices, backend, args=(n_frames, image_size, repeats), timeout=timeout,
+                      threads=None)
     posesM, msM = per_rank[0]
     pose_dev = float(np.abs(posesM - res1.poses).max()) if res1.poses.size else 0.0
+    shared = not isinstance(devices, list)
     return dict(
         integrated_mesh=list(mesh_shape),
         n_frames=n_frames,
-        single_process_ms_per_frame=round(res1.per_frame_ms, 2),
-        meshed_ms_per_frame=round(msM, 2),
-        max_pose_deviation_m=round(pose_dev, 6),
+        cards=1 if shared or first.type != "cuda" else len(devices),
+        single_process_ms_per_frame=float(np.median(ms1)),
+        single_process_ms_per_frame_runs=ms1,
+        meshed_ms_per_frame=float(np.median(msM)),
+        meshed_ms_per_frame_runs_by_rank=[ms for _, ms in per_rank],
+        max_pose_deviation_m=pose_dev,
         equivalent=pose_dev < 2e-2,
         ranks_bit_equal=all(np.array_equal(p, posesM) for p, _ in per_rank),
-        note="ranks timeshare the device: the ratio is integration overhead on shared hardware",
+        note=("ranks timeshare the device: the ratio is integration overhead on shared hardware" if shared
+              else "a card per rank; the single-process run frame by frame on the first card"),
     )
 
 

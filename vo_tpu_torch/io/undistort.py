@@ -9,7 +9,10 @@ bilinear warp whose table is computed once per calibration on the host
 
 The warp keeps the reference's gather arithmetic (floor, clip to W-2 / H-2,
 four takes, zero outside) rather than ``grid_sample``, whose pixel-centre and
-border rules differ.
+border rules differ. The reference compiles it (``jax.jit(undistort_image)``);
+here, on a CUDA device, it is one CUDA graph per image shape
+(utils.graphs.ByShape, program ``undistort_warp``) that holds the remap as a
+constant, and eager on the CPU.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from ..geom.camera import StereoCalib
+from ..utils import graphs
 from ..utils.device import resolve
 from ..utils.host_copy import upload
 
@@ -88,15 +92,27 @@ def undistort_image(img: torch.Tensor, remap: torch.Tensor) -> torch.Tensor:
 
 class Undistorter:
     """Per-camera undistortion with identity fast path (the KITTI case); the remap table lives
-    on ``device`` (None: the current CUDA device), where the images must be too."""
+    on ``device`` (None: the current CUDA device), where the images must be too.
 
-    def __init__(self, calib: StereoCalib, model: DistortionModel | None = None, device=None):
+    ``graph`` (utils.graphs.wanted): None warps through a CUDA graph on a CUDA device and eagerly
+    on the CPU, False eagerly, True on the CPU raises. The identity model returns the image itself.
+    """
+
+    def __init__(self, calib: StereoCalib, model: DistortionModel | None = None, device=None, graph=None):
         self.device = resolve(device)
         self.model = model or DistortionModel()
         self.identity = self.model.is_identity
+        graphed = graphs.wanted(graph, self.device) and not self.identity
         self._remap = None if self.identity else upload(torch.from_numpy(build_remap(calib, self.model)), self.device)
+        self._warp = graphs.ByShape(self._warp_eager, self.device, "undistort_warp") if graphed else self._warp_eager
+
+    def _warp_eager(self, img: torch.Tensor) -> torch.Tensor:
+        return undistort_image(img, self._remap)
 
     def __call__(self, img: torch.Tensor) -> torch.Tensor:
         if self.identity:
             return img
-        return undistort_image(img, self._remap)
+        # A graph's output is overwritten by its next replay: the caller gets a copy (a left and a
+        # right image go through one graph, one after the other).
+        out = self._warp(img)
+        return out.clone() if isinstance(self._warp, graphs.ByShape) else out

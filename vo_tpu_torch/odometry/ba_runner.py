@@ -12,8 +12,10 @@ On a CUDA card the solve is one CUDA graph (utils.graphs.StaticCall, the
 reference's ``jax.jit(solve_window)``), captured at the first solve (``warmup``
 makes it, at the production shapes (K, M) = (``cfg.window``,
 ``cfg.max_points``)); each dispatch copies the assembled problem into its
-static buffers and replays.
-``graph=False``, the CPU and a mesh solve eagerly.
+static buffers and replays. Landmark-sharded over a mesh's "model" axis
+(dist.ba_sharded), the solve is one graph per rank where its group is an
+NCCL group, its all-reduces and the final all-gather inside it.
+``graph=False``, the CPU and a solve that reduces over gloo run eagerly.
 
 The host parts (triangulation, Keyframe, the union-find associator, the
 window assembly and the collect gate) are the reference's numpy code, copied
@@ -29,6 +31,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ba.window import BAProblem, solve_window
 from ..config import BAConfig
@@ -160,15 +163,19 @@ class WindowedBA:
         ``group`` is the process group the solve reduces over, for a caller on a thread of
         its own (the refiner's worker); None is the mesh's own group. ``graph``: None solves
         through a CUDA graph on a CUDA device and eagerly on the CPU, False eagerly, True on
-        the CPU raises; under a mesh the solve is eager, and ``graph=True`` raises."""
+        the CPU raises; a sharded solve is captured where its group is an NCCL group and
+        eager where it is a gloo group (``graph=True`` there raises; utils.graphs.wanted)."""
         self.calib = calib.to("cpu")  # the window assembly reads it on the host
         self.cfg = cfg
         self.device = resolve(device)
         self._calib_dev = calib.to(self.device)
-        self._graphed = graphs.wanted(graph, self.device, mesh)
-        self._call: Optional[graphs.StaticCall] = None  # the captured solve (at the first solve: warmup)
         self._mesh = mesh if axis_size(mesh, "model") > 1 else None
         self._group = group
+        backends = None
+        if self._mesh is not None:
+            backends = (dist.get_backend(group if group is not None else mesh.get_group("model")),)
+        self._graphed = graphs.wanted(graph, self.device, backends)
+        self._call: Optional[graphs.StaticCall] = None  # the captured solve (at the first solve: warmup)
         self.window: deque = deque(maxlen=cfg.window)
         self.n_rejected = 0  # solves discarded by the correction sanity gate
         # In-flight solves: (HostCopy of T_c2w/cost/cost0, window frame_idxs at

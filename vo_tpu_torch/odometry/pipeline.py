@@ -13,7 +13,10 @@ The reference's three factories (``make_jitted_step``, ``make_fused_loop_step``,
 or per group. Their counterparts here return the eager step on the CPU and,
 on a CUDA device, the step recorded into one CUDA graph per frame shape
 (utils.graphs): its state, map, frames and outputs live in static buffers, and
-the next call overwrites what a call returned.
+the next call overwrites what a call returned. The meshed step
+(``make_fused_loop_step(mesh=)``) is one graph per rank where its collectives
+go over NCCL (sharded detection with its all-gather, hypothesis-sharded RANSAC
+with its all-gather, the landmark insert) and eager where they go over gloo.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import torch
 
 from ..config import PipelineConfig
 from ..dist.frontend_batch import detect_batch
-from ..dist.mesh import axis_size
+from ..dist.mesh import axis_size, collective_backends
 from ..dist.ransac_sharded import estimate_world_pose_sharded
 from ..frontend.sift import Features, detect_and_describe
 from ..frontend.track import StereoFeatures, TrackResult, stereo_features_with_matches, track
@@ -280,11 +283,11 @@ def vo_step(
     return state, out
 
 
-def _compiled(fn, calib: StereoCalib, graph, pool, mesh=None):
+def _compiled(fn, calib: StereoCalib, graph, pool, backends=None):
     """``fn(carry, *frames) -> (carry, outputs)`` as a factory's step ``step(carry, frames)``: the eager
-    function where ``graphs.wanted`` says so for ``calib``'s device, else one ``graphs.StaticStep``
-    per shape of the frames. A mesh step stays eager; ``graph=True`` with a mesh raises."""
-    if not graphs.wanted(graph, calib.P1.device, mesh):
+    function where ``graphs.wanted`` says so for ``calib``'s device and the ``backends`` of the
+    groups ``fn`` reduces over, else one ``graphs.StaticStep`` per shape of the frames."""
+    if not graphs.wanted(graph, calib.P1.device, backends):
         return lambda carry, frames: fn(carry, *frames)
     pool = pool if pool is not None else graphs.Pool(calib.P1.device)
     by_shape: dict = {}
@@ -337,9 +340,11 @@ def make_fused_loop_step(
     (the reference donates it); captured, the step inserts into its own static
     map, which it returns. ``with_query_feats`` appends the full left
     detection set ``(xy, desc, mask)`` (the loop-closure query side). ``mesh``
-    runs the step distributed (``vo_step``), always eagerly: ``graph=True``
-    with a mesh raises. ``precision``, ``graph`` and ``pool`` as in
-    ``make_jitted_step``.
+    runs the step distributed (``vo_step``): every rank captures its own graph
+    where the step's collectives go over NCCL, and steps eagerly where they go
+    over gloo (``graph=True`` there raises; utils.graphs.wanted); every rank
+    must call the step as often as the others. ``precision``, ``graph`` and
+    ``pool`` as in ``make_jitted_step``.
     """
     precision = cfg.matmul_precision if precision is None else precision
 
@@ -352,7 +357,7 @@ def make_fused_loop_step(
                 lmap = lm_mod.insert(lmap, out.new_lm_l_px, out.new_lm_r_px, out.new_lm_mask, out.pose_c2w, calib, cfg.landmarks)
         return (state, lmap), ((out, r[2]) if with_query_feats else (out,))
 
-    step = _compiled(fn, calib, graph, pool, mesh)
+    step = _compiled(fn, calib, graph, pool, collective_backends(mesh))
 
     def loop_step(state, lmap, left, right):
         (state, lmap), outs = step((state, lmap), (left, right))

@@ -26,7 +26,10 @@ CUDA graphs: the window solve (odometry.ba_runner), the verification round
 (slam.loop_closure) and the global descriptor that ``submit`` computes on the
 main thread. All are captured in the warm-up, the worker's first job, while
 the constructor blocks the main thread, so no capture runs while the other
-thread launches; each has a memory pool of its own.
+thread launches; each has a memory pool of its own. Under a mesh each rank
+captures its own: the round and the descriptor hold no collective, and the
+landmark-sharded solve is captured over the worker's NCCL group and eager
+over a gloo one (utils.graphs.wanted decides each program by itself).
 """
 from __future__ import annotations
 
@@ -149,8 +152,8 @@ class RefinerWorker:
         graph=None,
     ):
         """``graph``: None runs the worker's programs as CUDA graphs on a CUDA device and eagerly
-        on the CPU, False eagerly, True on the CPU raises; under a mesh they run eagerly, and
-        ``graph=True`` raises (module docstring).
+        on the CPU, False eagerly, True on the CPU raises; under a mesh, a sharded window solve
+        whose group is a gloo group runs eagerly (``graph=True`` then raises; module docstring).
 
         ``mesh`` with a "model" axis > 1 shards the window solve over it. The solve's
         collectives then run on this worker's thread (and CUDA stream) while the frame
@@ -165,7 +168,6 @@ class RefinerWorker:
         self.device = resolve(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
-        graphed = graphs.wanted(graph, self.device, mesh)
         self.wba = None
         self.lclo = None
         self.associator = None
@@ -173,13 +175,14 @@ class RefinerWorker:
             from .ba_runner import WindowAssociator, WindowedBA
 
             group = new_axis_group(mesh, "model") if axis_size(mesh, "model") > 1 else None
-            self.wba = WindowedBA(calib, cfg.ba, device=self.device, mesh=mesh, group=group, graph=graphed)
+            self.wba = WindowedBA(calib, cfg.ba, device=self.device, mesh=mesh, group=group, graph=graph)
             self.associator = WindowAssociator(cfg.ba.window)
         if use_loop_closure:
             from ..slam.loop_closure import LoopCloser
 
-            self.lclo = LoopCloser(calib, cfg.loop, matcher=cfg.matcher, device=self.device, graph=graphed)
+            self.lclo = LoopCloser(calib, cfg.loop, matcher=cfg.matcher, device=self.device, graph=graph)
         # submit's global descriptor: captured per shape in the warm-up, or eager
+        graphed = graphs.wanted(graph, self.device)
         self._gdesc = graphs.ByShape(global_desc, self.device, "global_descriptor") if graphed else global_desc
         self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         # frame_idx -> latest corrected [4,4] pose (worker-owned, lock-guarded)

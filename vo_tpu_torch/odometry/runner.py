@@ -22,10 +22,10 @@ refiner (odometry.refiner); with BA, the new keyframe's descriptors are first
 matched on the device against every keyframe of the window (the runner's
 descriptor ring). On a CUDA device that association, and the refiner's window
 solve, verification round and global descriptor, are CUDA graphs too, each
-with a pool of its own (``graph=False`` and a mesh run them eagerly; the
-refiner captures its programs in its warm-up, this module the association
-after it). The frame loop's only host waits are the refiner's
-``throttle`` and the final synchronise. Corrections live in the worker's
+with a pool of its own (``graph=False`` runs them eagerly; the refiner
+captures its programs in its warm-up, this module the association after it).
+The frame loop's only host waits are the refiner's ``throttle`` and the final
+synchronise. Corrections live in the worker's
 frame, and the full trajectory is re-anchored onto the corrected keyframes
 at the end (odometry.correction).
 
@@ -49,8 +49,13 @@ With ``mesh`` (dist.mesh.make_mesh) the run is SPMD: every rank of the mesh
 calls ``run_sequence`` with the same arguments, keeps the same replicated
 state and returns the same ``RunResult``. Detection is sharded over "data",
 RANSAC hypotheses over "model", and with ``use_ba`` the window solve's
-landmarks over "model" too. Only rank 0 writes files (checkpoints, metrics,
-figures); ``resume`` loads the one checkpoint on every rank.
+landmarks over "model" too. Each rank captures and replays its own graphs,
+program by program (utils.graphs.wanted): with a card per rank (NCCL) the
+step and the sharded solve too, their collectives inside them; where ranks
+share a card (gloo) those two step and solve eagerly and the programs without
+a collective (association, round, descriptor) are still graphs. Only rank 0
+writes files (checkpoints, metrics, figures); ``resume`` loads the one
+checkpoint on every rank.
 """
 from __future__ import annotations
 
@@ -66,6 +71,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..config import PipelineConfig
+from ..dist.mesh import collective_backends
 from ..frontend.match import match
 from ..frontend.track import StereoFeatures
 from ..utils import graphs
@@ -328,8 +334,9 @@ def run_sequence(
     docstring); an unknown name raises ``ValueError``. ``graph`` (utils.graphs):
     None steps (and, on the refined path, associates, solves and verifies)
     through CUDA graphs on a CUDA device and eagerly on the CPU, False runs all
-    of it eagerly, True on the CPU raises; a mesh runs eagerly (with
-    ``graph=True`` it raises).
+    of it eagerly, True on the CPU raises; under a mesh each program is
+    captured unless it issues a collective over gloo (module docstring; with
+    ``graph=True`` such a program raises).
     """
     with matmul_precision(cfg.matmul_precision):
         device = resolve(device)
@@ -354,7 +361,7 @@ def run_sequence(
         group = cfg.fused_group if deferred and not refined and mesh is None else 1
 
         # One graph memory pool for both steps: the groups replay first, the single-frame tail after.
-        captured = graphs.wanted(graph, device, mesh)
+        captured = graphs.wanted(graph, device, collective_backends(mesh))
         pool = graphs.Pool(device) if captured else None
         step1 = make_fused_loop_step(
             calib, cfg, with_landmarks=insert_landmarks, mesh=mesh, with_query_feats=use_loop_closure, graph=graph, pool=pool
@@ -415,9 +422,9 @@ def run_sequence(
             # Constructed before the timed loop: its solver and verification
             # warm-ups run here.
             refiner = RefinerWorker(
-                seq.calib, cfg, use_ba=use_ba, use_loop_closure=use_loop_closure, device=device, mesh=mesh, graph=captured
+                seq.calib, cfg, use_ba=use_ba, use_loop_closure=use_loop_closure, device=device, mesh=mesh, graph=graph
             )
-            kfs = _Keyframes(refiner, cfg, device, use_ba, graph=captured)
+            kfs = _Keyframes(refiner, cfg, device, use_ba, graph=graph)
             if resumed_refiner_state is not None:
                 # Bit-exact resume of refined runs: ledgers, archive, loop edges,
                 # in-flight rounds, associator rings.

@@ -10,7 +10,9 @@ step. This module owns the mechanics:
   the frames, copied in on each call unless they already are the static ones;
   the outputs, overwritten by every replay), the recorded graph and ``replay``.
 - ``capture``: warm-up on a side stream (first-use costs: library handles,
-  the per-shape device constants, allocator growth), then capture on that
+  the per-shape device constants, allocator growth, and on a mesh the NCCL
+  communicator, which NCCL builds at a group's first collective and which
+  must exist before a capture records one), then capture on that
   stream with ``capture_error_mode="thread_local"``. Every generator the step
   draws from is registered with the graph, so that each replay advances it
   as the eager step would; the capture itself must leave it where it was,
@@ -28,14 +30,22 @@ step. This module owns the mechanics:
   programs replay on its thread, the keyframe programs on the frame loop's,
   each in an order of its own, interleaved with the steps.
 - Launch accounting: a hand-written kernel's wrapper that runs under capture
-  counts the call in ``frontend.kernels.CAPTURED``; the graph keeps how many
-  it captured of each and adds them to ``kernels.LAUNCHES`` on each replay.
+  counts the call in ``frontend.kernels.CAPTURED``, a collective of the mesh
+  in ``dist.mesh.CAPTURED``; the graph keeps how many it captured of each and
+  adds them to ``kernels.LAUNCHES`` and ``dist.mesh.COLLECTIVES`` on each
+  replay, so a graphed run counts what the eager run counts.
 - ``PROGRAMS``: captures, replays and capture seconds of every ``StaticCall``,
   by program name (``reset_programs`` sets them to 0).
 
-``wanted`` decides: ``graph=None`` captures on a CUDA device and runs eagerly
-on the CPU, ``graph=False`` is the eager step, ``graph=True`` on the CPU raises;
-under a mesh everything is eager, and ``graph=True`` raises.
+``wanted`` decides, per program: ``graph=None`` captures on a CUDA device and
+runs eagerly on the CPU, ``graph=False`` is the eager program, ``graph=True``
+on the CPU raises. A program of a mesh is captured when every collective it
+issues goes over NCCL, which enqueues on the stream like any kernel (the
+reference compiles its meshed programs too); one that issues a collective
+over gloo stays eager by rule, because gloo stages a CUDA tensor through host
+memory and the host waits there (dist.mesh), and ``graph=True`` for it
+raises. Each rank captures and replays its own graphs: every rank must replay
+every graph that holds a collective, or its peers wait for good.
 """
 from __future__ import annotations
 
@@ -44,6 +54,7 @@ from collections import defaultdict
 
 import torch
 
+from ..dist import mesh as mesh_mod
 from ..frontend import kernels
 from .debug import nan_checks_enabled
 
@@ -57,12 +68,18 @@ def reset_programs() -> None:
     PROGRAMS.clear()
 
 
-def wanted(graph, device, mesh=None) -> bool:
-    """Whether a step on ``device`` runs as a captured graph (module docstring); under a ``mesh``
-    it runs eagerly (its collectives are not captured), and ``graph=True`` with one raises."""
-    if mesh is not None:
+def wanted(graph, device, backends=None) -> bool:
+    """Whether a program on ``device`` runs as a captured graph (module docstring). ``backends``
+    names the backend of every process group the program issues collectives over
+    (dist.mesh.collective_backends; None: it issues none)."""
+    staged = sorted({b for b in backends or () if b != "nccl"})
+    if staged:
         if graph:
-            raise ValueError("graph=True with a mesh: the mesh runs eagerly (its collectives are not captured)")
+            raise ValueError(
+                f"graph=True with a mesh whose collectives go over {', '.join(staged)}: only collectives over NCCL "
+                "are captured into a CUDA graph (a gloo collective stages through host memory and waits there); "
+                "give each rank a card of its own (NCCL), or pass graph=None or graph=False"
+            )
         return False
     cuda = torch.device(device).type == "cuda"
     if graph is None:
@@ -89,15 +106,18 @@ class Pool:
 class Captured:
     """A recorded step: ``replay()`` launches it and returns its static outputs."""
 
-    def __init__(self, graph: torch.cuda.CUDAGraph, outputs, launches: dict):
+    def __init__(self, graph: torch.cuda.CUDAGraph, outputs, launches: dict, collectives: dict | None = None):
         self.graph = graph
         self.outputs = outputs
         self.launches = launches  # hand-written kernel launches inside the graph, by wrapper name
+        self.collectives = collectives or {}  # mesh collectives inside the graph, by kind
 
     def replay(self):
         self.graph.replay()
         for k, v in self.launches.items():
             kernels.LAUNCHES[k] += v
+        for k, v in self.collectives.items():
+            mesh_mod.COLLECTIVES[k] += v
         return self.outputs
 
 
@@ -124,14 +144,15 @@ def capture(body, device, pool: Pool | None = None, generators=()) -> Captured:
     for gen in generators:
         graph.register_generator_state(gen)
     before = [gen.get_state() for gen in generators]
-    captured = dict(kernels.CAPTURED)
+    launches, collectives = dict(kernels.CAPTURED), dict(mesh_mod.CAPTURED)
     with torch.cuda.graph(graph, pool=pool.handle, stream=pool.stream, capture_error_mode="thread_local"):
         outputs = body()
     for gen, state in zip(generators, before):
         if not torch.equal(gen.get_state(), state):
             raise RuntimeError("the capture moved a registered generator's stream: a replay would draw other samples")
-    launches = {k: kernels.CAPTURED[k] - captured[k] for k in captured}
-    return Captured(graph, outputs, launches)
+    launches = {k: kernels.CAPTURED[k] - v for k, v in launches.items()}
+    collectives = {k: mesh_mod.CAPTURED[k] - v for k, v in collectives.items()}
+    return Captured(graph, outputs, launches, collectives)
 
 
 def static_copy(tree):
