@@ -134,10 +134,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      and replayed its keyframe association on every rank (``graphs.PROGRAMS``:
      no collective in it, so a graph under gloo too, while the step and the
      sharded solve stay eager), and equals the same run with ``graph=False``
-     bit for bit on every rank. A rank that
-     dies or hangs fails the phase with its stderr. The ms per frame printed
-     beside the single-process run's are the overhead of the integration on one
-     shared card, not scaling.
+     bit for bit on every rank. Every rank records each collective it issues in
+     the counted runs (the issuing thread, the mesh axis, the kind): every
+     rank's list must equal rank 0's, and all of it must come from the frame
+     loop's thread (odometry.refiner launches the sharded solves there). A
+     rank that dies or hangs fails the phase with its stderr (and its threads'
+     stacks). The ms per frame printed beside the single-process run's are the
+     overhead of the integration on one shared card, not scaling.
  13. the benchmark surface, in process (so the launch counters see it):
      ``vo_tpu_torch.bench.main(["--repeats", "3", "--sustained-frames", "0",
      "--stages"])`` renders phase 4's feed anew and must print one JSON line with
@@ -194,6 +197,7 @@ computes either function. The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import importlib.util
@@ -204,11 +208,13 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import zlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vo_tpu_torch.ba import pose_graph, window
 from vo_tpu_torch.config import MeshConfig, PipelineConfig
@@ -1127,6 +1133,24 @@ def save_frames(feed, n: int, path: str) -> None:
     np.save(path, np.stack([np.stack([im.cpu().numpy() for im in feed.frame(i)]) for i in range(n)]))
 
 
+def record_collectives(mesh, order: list) -> None:
+    """Append (issuing thread: "main" or "worker", the mesh axis, kind) to ``order`` at every collective
+    this process issues from now on."""
+    axes = {tuple(dist.get_process_group_ranks(mesh.get_group(a))): a for a in mesh.mesh_dim_names}
+
+    def recorded(kind, fn):
+        def call(t, group):
+            role = "main" if threading.current_thread() is threading.main_thread() else "worker"
+            order.append((role, axes[tuple(dist.get_process_group_ranks(group))], kind))
+            return fn(t, group)
+
+        return call
+
+    mesh_mod.all_gather = recorded("all_gather", mesh_mod.all_gather)
+    mesh_mod.all_reduce_sum_ = recorded("all_reduce", mesh_mod.all_reduce_sum_)
+    ba_sharded.all_gather = mesh_mod.all_gather  # imported there by name
+
+
 def mesh_rank(mesh, device, frames_path: str, gt_poses, use_ba: bool) -> dict:
     """One rank of phase 12: run_sequence(mesh=) over the saved frames at the default config."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1143,7 +1167,10 @@ def mesh_rank(mesh, device, frames_path: str, gt_poses, use_ba: bool) -> dict:
         return k1(dogs, *a, **k)
 
     kernels.extrema_scores_octaves = spy
+    order: list = []
+    record_collectives(mesh, order)
     runner.run_sequence(feed, cfg, mesh=mesh, device=device, use_ba=use_ba)  # warm run
+    order.clear()
     batches.clear()
     kernels.reset_launches()
     mesh_mod.reset_collectives()
@@ -1154,6 +1181,7 @@ def mesh_rank(mesh, device, frames_path: str, gt_poses, use_ba: bool) -> dict:
         launches=dict(kernels.LAUNCHES), collectives=dict(mesh_mod.COLLECTIVES), batches=sorted(set(batches)),
         n_keyframes=res.refine_stats.get("n_keyframes"), ba_solves=res.refine_stats.get("ba_solves"),
         programs={k: {n: v[n] for n in ("captures", "replays")} for k, v in graphs.PROGRAMS.items()},
+        order=list(order),
     )
     if use_ba:
         # Over gloo the step and the sharded solve are eager by rule; the association is still a graph.
@@ -1178,6 +1206,13 @@ def shared_card_mesh(feed, feed5, cfg: PipelineConfig, device, single: runner.Ru
                     raise AssertionError(f"mesh {shape}: {k} of rank {r} differs from rank 0's")
             if min(out["launches"].values()) <= 0:
                 raise AssertionError(f"mesh {shape}: rank {r} never launched a kernel: {out['launches']}")
+            if out["order"] != per_rank[0]["order"]:
+                raise AssertionError(f"mesh {shape}: rank {r} issued its collectives in another order than rank 0")
+            if {role for role, _, _ in out["order"]} != {"main"}:
+                raise AssertionError(f"mesh {shape}: rank {r} issued collectives from {sorted({o[0] for o in out['order']})}")
+        order = per_rank[0]["order"]
+        print(f"     mesh {shape}: every rank issued the same {len(order)} collectives in one order, all from the frame "
+              f"loop's thread ({sorted(collections.Counter((a, k) for _, a, k in order).items())})")
         return per_rank, time.perf_counter() - t
 
     path = os.path.join(tmp, "frames30.npy")

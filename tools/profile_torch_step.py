@@ -4,7 +4,7 @@
     python tools/profile_torch_step.py --refined [--eager]
     python tools/profile_torch_step.py --exact
     python tools/profile_torch_step.py --mesh 1,2 [--ba] [--eager]
-    python tools/profile_torch_step.py --mesh 2,2 --cards [--ba] [--repeats 5]
+    python tools/profile_torch_step.py --mesh 2,2 --cards [--ba] [--repeats 5] [--runs graphed,eager] [--timeout 900]
 
 Renders the synthetic KITTI-00 feed (30 frames, 6000 landmarks, seed 0, as
 chip_smoke.py), stages it on the card and runs odometry.runner.run_sequence at
@@ -55,10 +55,18 @@ eager and only the programs without a collective are graphs), or, with
 ``--cards``, that have a card each over NCCL (DATA * MODEL cards; every
 program a graph, its collectives inside it), once graphed and once with
 ``graph=False``, whose results must equal bit for bit on every rank (exit 1
-otherwise). ``--ba`` adds window BA over the 199-frame out-and-back feed (the
-plain mesh runs ``--frames`` of the synthetic feed). Per rank: a warm run,
+otherwise); ``--runs`` names the launches in order (``graphed,eager`` by
+default; a name may repeat, and every launch must equal the first), and
+``--timeout`` is each launch's time limit (dist.mesh.launch: a rank still
+running then is killed, and its threads' Python stacks are shown). ``--ba``
+adds window BA over the 199-frame out-and-back feed (the plain mesh runs
+``--frames`` of the synthetic feed), and then also exits 1 unless rank 0 is
+within 2e-2 m of the one-card BA run and its ATE within plain VO's + 0.02 m;
+beside it, the one-card refined run (BA and loop closure) and plain VO on the
+same feed. Per rank: a warm run,
 ``--repeats`` untraced runs (ms/frame: median and spread), and one run under
-torch.profiler: over the frame loop, device busy ms and idle share, host
+torch.profiler (graphed the whole feed, eager its first EAGER_TRACE_FRAMES
+frames): over the frame loop, device busy ms and idle share, host
 launches per frame (by thread), collectives per frame, the device time of
 NCCL kernels (none under gloo) and of device copies; and the seconds of each
 capture and the bytes of the graph pools. Beside them the single-process run
@@ -97,6 +105,10 @@ from vo_tpu_torch.frontend.sift import _octave_caps, detect_and_describe  # noqa
 from vo_tpu_torch.io import synthetic  # noqa: E402
 from vo_tpu_torch.odometry import landmarks, pipeline, runner  # noqa: E402
 
+
+# An eager meshed run is traced over its first frames only: the profiler's Python post-processing of
+# its ~4,000 launches a frame outlasts the launch's time limit over the 199-frame feed.
+EAGER_TRACE_FRAMES = 30
 
 # Device kernel names of the hand-written kernels (csrc/*.cu), as the profiler reports them.
 HAND_WRITTEN = {"extrema_scores_kernel": "K1 extrema_scores", "bin_maps_kernel": "K2 bin_maps"}
@@ -200,6 +212,8 @@ def main() -> int:
     ap.add_argument("--ba", action="store_true", help="with --mesh: window BA on (the worker's collectives too), over the 199-frame out-and-back feed")
     ap.add_argument("--cards", action="store_true", help="with --mesh: one NCCL rank per card (DATA * MODEL cards), graphed and eager")
     ap.add_argument("--repeats", type=int, default=5, help="with --mesh: timed runs after the warm run")
+    ap.add_argument("--runs", default="graphed,eager", help="with --mesh --cards: the launches in order, each graphed or eager")
+    ap.add_argument("--timeout", type=float, default=900.0, help="with --mesh: each launch's time limit in seconds")
     ap.add_argument("--eager", action="store_true", help="profile the eager step (graph=False), not the captured graphs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -219,7 +233,10 @@ def main() -> int:
         return profile_exact(cfg, dev, card, args.reps)
     if args.mesh:
         shape = tuple(int(x) for x in args.mesh.split(","))
-        return profile_mesh(cfg, dev, card, shape, args.frames, args.ba, args.cards, graph, args.repeats)
+        runs = args.runs.split(",") if args.cards else ["eager" if args.eager else "graphed"]
+        if not set(runs) <= {"graphed", "eager"}:
+            ap.error(f"--runs: each launch is graphed or eager, not {args.runs}")
+        return profile_mesh(cfg, dev, card, shape, args.frames, args.ba, args.cards, runs, args.repeats, args.timeout)
     seq = synthetic.kitti_synthetic_sequence(n_frames=args.frames, n_landmarks=6000, seed=0)
     feed = runner.StagedSequence(seq, args.frames, dev)
 
@@ -329,8 +346,10 @@ def profile_exact(cfg: PipelineConfig, dev, card: str, reps: int) -> int:
 
 
 def mesh_rank(mesh, device, frames_path: str, gt_poses, use_ba: bool, graph, repeats: int):
-    """One rank of ``--mesh``: a warm run, ``repeats`` untraced runs and one traced run (every rank runs
-    all of them: a rank that skipped a run holding a collective would leave its peers waiting)."""
+    """One rank of ``--mesh``: a warm run, ``repeats`` untraced runs and one traced run, over the whole feed
+    graphed and its first EAGER_TRACE_FRAMES frames eager (every rank runs all of them: a rank that
+    skipped a run holding a collective would leave its peers waiting). The result and the refiner's
+    figures are the last untraced run's."""
     import tempfile
 
     from chip_smoke import ArrayFeed, launched_by
@@ -360,18 +379,21 @@ def mesh_rank(mesh, device, frames_path: str, gt_poses, use_ba: bool, graph, rep
 
     graphs.capture = timed_capture
 
-    def run(warmup=True):
-        return runner.run_sequence(feed, cfg, mesh=mesh, device=device, use_ba=use_ba, warmup=warmup, graph=graph)
+    def run(warmup=True, n_frames=None):
+        return runner.run_sequence(feed, cfg, n_frames=n_frames, mesh=mesh, device=device, use_ba=use_ba, warmup=warmup,
+                                   graph=graph)
 
     run()  # warm
     timed = [run() for _ in range(repeats)]
     ms = sorted(r.per_frame_ms for r in timed)
+    res = timed[-1]
+    n_traced = n if graph is None else min(n, EAGER_TRACE_FRAMES)
     mesh_mod.reset_collectives()
     with tempfile.TemporaryDirectory() as tmp:
         # Which host call launched each NCCL kernel, read from the chrome trace of a graphed run (an
         # eager run's trace, thousands of launches a frame, is not written).
         trace = os.path.join(tmp, "trace.json") if graph is None else None
-        res, loop = frame_loop_trace(lambda: run(warmup=False), n, trace)
+        _, loop = frame_loop_trace(lambda: run(warmup=False, n_frames=n_traced), n_traced, trace)
         nccl_launched_by = {} if trace is None else {
             k[:80]: sorted(v) for k, v in launched_by(trace).items() if "nccl" in k.lower()}
     by_name = loop.pop("kernel_ms_per_frame")
@@ -383,6 +405,7 @@ def mesh_rank(mesh, device, frames_path: str, gt_poses, use_ba: bool, graph, rep
         mesh=mesh_mod.mesh_shape(mesh),
         backend=torch.distributed.get_backend(),
         frames=n,
+        traced_frames=n_traced,
         use_ba=use_ba,
         graphed=graph is None,
         wall_ms_per_frame_runs=ms,
@@ -391,7 +414,7 @@ def mesh_rank(mesh, device, frames_path: str, gt_poses, use_ba: bool, graph, rep
         device_idle_share=1.0 - busy / median,
         **loop,
         collectives=dict(mesh_mod.COLLECTIVES),
-        collectives_per_frame=sum(mesh_mod.COLLECTIVES.values()) / n,
+        collectives_per_frame=sum(mesh_mod.COLLECTIVES.values()) / n_traced,
         nccl_device_ms_per_frame=sum(v for k, v in by_name.items() if "nccl" in k.lower()),
         nccl_kernels_launched_by=nccl_launched_by,
         copies_device_ms_per_frame=sum(v for k, v in by_name.items() if "memcpy" in k.lower()),
@@ -402,14 +425,16 @@ def mesh_rank(mesh, device, frames_path: str, gt_poses, use_ba: bool, graph, rep
     )
 
 
-def profile_mesh(cfg: PipelineConfig, dev, card: str, shape, n: int, use_ba: bool, cards: bool, graph, repeats: int) -> int:
+def profile_mesh(cfg: PipelineConfig, dev, card: str, shape, n: int, use_ba: bool, cards: bool, runs: list, repeats: int,
+                 timeout: float) -> int:
     """``--mesh``: the ranks share the card over gloo, or (``cards``) each has a card of its own (NCCL);
-    with a card per rank each rank runs graphed and with ``graph=False``, which must be equal."""
+    ``runs`` names the launches, graphed or eager (``graph=False``), whose results must all be equal."""
     import tempfile
 
-    from chip_smoke import OUT_FRAMES, OutAndBackFeed, save_frames
+    from chip_smoke import MESH_POSE_TOL_M, OUT_FRAMES, REFINED_ATE_SLACK_M, OutAndBackFeed, save_frames
 
     from vo_tpu_torch.dist import mesh as mesh_mod
+    from vo_tpu_torch.eval import metrics
 
     world = shape[0] * shape[1]
     if cards and torch.cuda.device_count() < world:
@@ -426,12 +451,20 @@ def profile_mesh(cfg: PipelineConfig, dev, card: str, shape, n: int, use_ba: boo
     kw = dict(device=dev, use_ba=use_ba)
     one_cfg = dataclasses.replace(cfg, fused_group=1)  # the mesh steps frame by frame: compare like with like
     runner.run_sequence(feed, one_cfg, **kw)  # warm
-    single = sorted(runner.run_sequence(feed, one_cfg, **kw).per_frame_ms for _ in range(repeats))
+    singles = [runner.run_sequence(feed, one_cfg, **kw) for _ in range(repeats)]
+    single = sorted(r.per_frame_ms for r in singles)
     devices = [torch.device("cuda", i) for i in range(world)] if cards else dev
     backend = None if cards else "gloo"
-    graphs_asked = (None, False) if cards else (graph,)
     summary = dict(card=card, cards=world if cards else 1, frames=n, use_ba=use_ba,
                    single_process_frame_by_frame_ms_per_frame_runs=single, runs={})
+    if use_ba:
+        # Beside the meshed BA run: the one-card refined run (BA and loop closure) and plain VO on the same feed.
+        refined = [runner.run_sequence(feed, cfg, device=dev, use_ba=True, use_loop_closure=True) for _ in range(repeats + 1)][1:]
+        plain = runner.run_sequence(feed, one_cfg, device=dev)
+        summary["single_process_refined_ms_per_frame_runs"] = sorted(r.per_frame_ms for r in refined)
+        summary["ate_rmse_m"] = dict(single_process_ba=metrics.ate(singles[-1].poses, gt)["rmse"],
+                                     single_process_refined=metrics.ate(refined[-1].poses, gt)["rmse"],
+                                     single_process_plain=metrics.ate(plain.poses, gt)["rmse"])
     fields = ("poses", "rel_poses", "n_inliers", "n_tracks", "pose_ok", "landmarks")
     first = None  # rank 0's result of the first run: every rank of every run must equal it
     os.makedirs("chiprun_out", exist_ok=True)
@@ -441,31 +474,45 @@ def profile_mesh(cfg: PipelineConfig, dev, card: str, shape, n: int, use_ba: boo
         save_frames(feed, n, path)
         # Each run's figures are printed and written as they land: a later run that fails or hangs
         # (its launch's time limit names the rank) leaves the earlier ones.
-        for g in graphs_asked:
-            name = "graphed" if g is None else "eager"
+        for j, kind in enumerate(runs):
+            g = None if kind == "graphed" else False
+            name = kind if runs.index(kind) == j else f"{kind}_{runs[: j + 1].count(kind)}"
             per_rank = mesh_mod.launch(mesh_rank, shape, devices, backend=backend, args=(path, gt, use_ba, g, repeats),
-                                       timeout=900.0, threads=2)
+                                       timeout=timeout, threads=2)
             first = per_rank[0]["result"] if first is None else first
             for r in per_rank:
                 print(
                     f"mesh {r['mesh']} over {r['backend']}, rank {r['rank']} on {r['device']} ({summary['cards']} card(s)), "
                     f"{name}, {n} frames" + (", window BA" if use_ba else "") + f": {r['wall_ms_per_frame']:.3f} ms/frame "
                     f"(median of {repeats}, spread {r['wall_ms_per_frame_spread']:.3f}; single process frame by frame on one "
-                    f"card {single[len(single) // 2]:.3f}); device busy {r['device_busy_ms_per_frame']:.3f} ms/frame, idle "
+                    f"card {single[len(single) // 2]:.3f}); traced over {r['traced_frames']} frames: device busy "
+                    f"{r['device_busy_ms_per_frame']:.3f} ms/frame, idle "
                     f"share {r['device_idle_share']:.3f}; host launches/frame {r['host_launches_per_frame']:.1f} "
                     f"{r['host_launches_per_frame_by_thread']}; collectives/frame {r['collectives_per_frame']:.2f} "
                     f"{r['collectives']}; NCCL device ms/frame {r['nccl_device_ms_per_frame']:.4f}, its kernels launched by "
                     f"{r['nccl_kernels_launched_by']}; captures {len(r['capture_s'])} ({sum(r['capture_s']):.3f} s), pool "
                     f"bytes {r['pool_bytes']}; refine_stats {r['refine_stats']}"
                 )
-                r["equal_to_the_first"] = all(np.array_equal(r.pop("result")[k], first[k]) for k in fields)
+                got = r.pop("result")
+                r["equal_to_the_first"] = all(np.array_equal(got[k], first[k]) for k in fields)
             summary["runs"][name] = per_rank
             summary["ranks_and_runs_bit_equal"] = all(r["equal_to_the_first"] for v in summary["runs"].values() for r in v)
+            if use_ba and j == 0:
+                # Rank 0 against the one-card run with the same options, and the BA mesh's ATE against plain VO's.
+                ate = summary["ate_rmse_m"]
+                ate["mesh_rank0"] = metrics.ate(first["poses"], gt)["rmse"]
+                d = float(np.linalg.norm(first["poses"][:, :3, 3] - singles[-1].poses[:, :3, 3], axis=1).max())
+                summary["mesh_rank0_max_dt_to_single_process_m"] = d
+                summary["within_bounds"] = d < MESH_POSE_TOL_M and ate["mesh_rank0"] <= ate["single_process_plain"] + REFINED_ATE_SLACK_M
+                refined_ms = summary["single_process_refined_ms_per_frame_runs"]
+                print(f"rank 0 against the one-card BA run: max |dt| {d:.3e} m (bound {MESH_POSE_TOL_M}); ATE rmse {ate} m "
+                      f"(the mesh's bound: plain + {REFINED_ATE_SLACK_M}); within bounds: {summary['within_bounds']}; one-card "
+                      f"refined (BA and loop closure) {refined_ms[len(refined_ms) // 2]:.3f} ms/frame (median of {repeats})")
             print(f"every rank's result so far ({', '.join(summary['runs'])}) equal bit for bit: "
                   f"{summary['ranks_and_runs_bit_equal']}")
             with open(os.path.join("chiprun_out", out), "w") as f:
                 json.dump(summary, f, indent=1)
-    return 0 if summary["ranks_and_runs_bit_equal"] else 1
+    return 0 if summary["ranks_and_runs_bit_equal"] and summary.get("within_bounds", True) else 1
 
 
 def profile_refined(cfg: PipelineConfig, dev, card: str, graph) -> int:

@@ -25,20 +25,17 @@ def solve_window_sharded(
     cfg: BAConfig,
     mesh,
     axis: str = "model",
-    group=None,
 ) -> BAResult:
     """Same contract as ba.window.solve_window; the landmark capacity M must divide by the axis size.
 
     ``prob`` is the full, replicated problem; the result carries the full ``X``
-    (the shards all-gathered), so it has the single-device shapes. ``group``
-    replaces the mesh's own group over ``axis`` (a worker thread brings its own:
-    mesh.new_axis_group).
+    (the shards all-gathered), so it has the single-device shapes.
     """
     M = prob.X.shape[0]
     n = axis_size(mesh, axis)
     if M % n != 0:
         raise ValueError(f"landmark capacity {M} not divisible by {n} shards")
-    group = mesh.get_group(axis) if group is None else group
+    group = mesh.get_group(axis)
     rows = shard_rows(M, mesh, axis)
     local = BAProblem(
         T_c2w=prob.T_c2w,  # replicated poses

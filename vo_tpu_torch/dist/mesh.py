@@ -37,6 +37,7 @@ share a card.
 from __future__ import annotations
 
 import atexit
+import faulthandler
 import multiprocessing
 import os
 import pickle
@@ -166,24 +167,6 @@ def shard_rows(n_rows: int, mesh: DeviceMesh, axis: str) -> slice:
     return slice(r * per, (r + 1) * per)
 
 
-def new_axis_group(mesh: DeviceMesh, axis: str):
-    """A NEW process group over the same ranks as this rank's ``axis`` group.
-
-    Two threads must never share a communicator, so a worker thread that
-    reduces over an axis gets a group of its own. ``new_group`` is collective
-    over the world: every rank calls this at the same point, and the groups of
-    all the axis's rows are created in one order everywhere.
-    """
-    dim = mesh.mesh_dim_names.index(axis)
-    rows = mesh.mesh.movedim(dim, -1).reshape(-1, mesh.size(dim))
-    mine = None
-    for row in rows.tolist():
-        g = dist.new_group(ranks=row)
-        if dist.get_rank() in row:
-            mine = g
-    return mine
-
-
 # -- collectives ----------------------------------------------------------------
 
 
@@ -270,11 +253,20 @@ def all_gather_packed(tensors, group) -> list:
 # -- launcher ---------------------------------------------------------------------
 
 
-def _rank_entry(rank, shape, device, backend, rdv, threads, fn, args):
-    """Body of one launched rank: join the world, build the mesh, run ``fn``, leave the result."""
+# A launched rank still running this long before ``launch``'s deadline writes every thread's Python
+# stack to its stderr, which the TimeoutError then shows; one that started later writes it at once,
+# and ``launch`` waits up to DUMP_WAIT_S past its deadline for it.
+DUMP_AHEAD_S = 1.0
+DUMP_WAIT_S = 5.0
+
+
+def _rank_entry(rank, shape, device, backend, rdv, threads, fn, args, deadline):
+    """Body of one launched rank: join the world, build the mesh, run ``fn``, leave the result.
+    ``deadline`` is ``launch``'s, on the wall clock (``time.time``)."""
     err = open(os.path.join(rdv, f"rank{rank}.err"), "w", buffering=1)
     os.dup2(err.fileno(), 2)
     sys.stderr = err
+    faulthandler.dump_traceback_later(max(0.1, deadline - time.time() - DUMP_AHEAD_S), repeat=False, file=err)
     try:
         if threads:
             torch.set_num_threads(threads)
@@ -325,7 +317,9 @@ def launch(fn, shape, device, backend: str | None = None, args: tuple = (), time
 
     Nothing is survived: the first rank to exit non-zero ends the others and
     raises ``RuntimeError`` with its stderr; ranks still running after
-    ``timeout`` seconds are killed and named in a ``TimeoutError``.
+    ``timeout`` seconds are killed and named in a ``TimeoutError``, which holds
+    their stderr with every thread's Python stack as it stood just before the
+    deadline (``DUMP_AHEAD_S``).
     """
     shape = (int(shape[0]), int(shape[1]))
     world = shape[0] * shape[1]
@@ -334,14 +328,15 @@ def launch(fn, shape, device, backend: str | None = None, args: tuple = (), time
         raise ValueError(f"{len(devices)} devices for {world} ranks")
     rdv = tempfile.mkdtemp(prefix="vo_mesh_")
     ctx = multiprocessing.get_context("spawn")
+    wall_deadline = time.time() + timeout
     procs = [
-        ctx.Process(target=_rank_entry, args=(r, shape, devices[r], backend, rdv, threads, fn, args), daemon=True)
+        ctx.Process(target=_rank_entry, args=(r, shape, devices[r], backend, rdv, threads, fn, args, wall_deadline), daemon=True)
         for r in range(world)
     ]
     try:
+        deadline = time.monotonic() + timeout
         for p in procs:
             p.start()
-        deadline = time.monotonic() + timeout
         while True:
             codes = [p.exitcode for p in procs]
             bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
@@ -352,9 +347,12 @@ def launch(fn, shape, device, backend: str | None = None, args: tuple = (), time
                 break
             if time.monotonic() > deadline:
                 hung = [r for r, c in enumerate(codes) if c is None]
+                late = time.monotonic() + DUMP_WAIT_S
+                while time.monotonic() < late and not all("most recent call first" in _stderr_of(rdv, r) for r in hung):
+                    time.sleep(0.02)
                 raise TimeoutError(
                     f"mesh ranks {hung} of {world} still running after {timeout:.0f} s; "
-                    f"stderr of rank {hung[0]}:\n{_stderr_of(rdv, hung[0])}"
+                    + "".join(f"stderr of rank {r}:\n{_stderr_of(rdv, r)}\n" for r in hung)
                 )
             time.sleep(0.02)
         results = []

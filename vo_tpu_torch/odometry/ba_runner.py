@@ -16,6 +16,10 @@ static buffers and replays. Landmark-sharded over a mesh's "model" axis
 (dist.ba_sharded), the solve is one graph per rank where its group is an
 NCCL group, its all-reduces and the final all-gather inside it.
 ``graph=False``, the CPU and a solve that reduces over gloo run eagerly.
+``dispatch`` is ``prepare`` (the host assembly and the problem's upload)
+then ``launch`` (the solve and the start of its host copies), so that a
+caller can run the two halves on two threads (odometry.refiner does under
+a mesh).
 
 The host parts (triangulation, Keyframe, the union-find associator, the
 window assembly and the collect gate) are the reference's numpy code, copied
@@ -156,12 +160,11 @@ class WindowAssociator:
 class WindowedBA:
     """Keyframe window + device solver; returns pose corrections."""
 
-    def __init__(self, calib: StereoCalib, cfg: BAConfig, device=None, mesh=None, group=None, graph=None):
+    def __init__(self, calib: StereoCalib, cfg: BAConfig, device=None, mesh=None, graph=None):
         """``mesh`` with a "model" axis > 1 runs every window solve landmark-sharded over it
-        (dist.ba_sharded: the same solver, its landmark sums all-reduced); every rank of the
-        axis then holds the same window and calls the same methods in the same order.
-        ``group`` is the process group the solve reduces over, for a caller on a thread of
-        its own (the refiner's worker); None is the mesh's own group. ``graph``: None solves
+        (dist.ba_sharded: the same solver, its landmark sums all-reduced over the mesh's
+        group); every rank of the axis then holds the same window and calls the same methods
+        in the same order. ``graph``: None solves
         through a CUDA graph on a CUDA device and eagerly on the CPU, False eagerly, True on
         the CPU raises; a sharded solve is captured where its group is an NCCL group and
         eager where it is a gloo group (``graph=True`` there raises; utils.graphs.wanted)."""
@@ -170,10 +173,9 @@ class WindowedBA:
         self.device = resolve(device)
         self._calib_dev = calib.to(self.device)
         self._mesh = mesh if axis_size(mesh, "model") > 1 else None
-        self._group = group
         backends = None
         if self._mesh is not None:
-            backends = (dist.get_backend(group if group is not None else mesh.get_group("model")),)
+            backends = (dist.get_backend(mesh.get_group("model")),)
         self._graphed = graphs.wanted(graph, self.device, backends)
         self._call: Optional[graphs.StaticCall] = None  # the captured solve (at the first solve: warmup)
         self.window: deque = deque(maxlen=cfg.window)
@@ -186,7 +188,7 @@ class WindowedBA:
 
     def _solve_eager(self, prob: BAProblem):
         if self._mesh is not None:
-            return solve_window_sharded(prob, self._calib_dev, self.cfg, self._mesh, group=self._group)
+            return solve_window_sharded(prob, self._calib_dev, self.cfg, self._mesh)
         return solve_window(prob, self._calib_dev, self.cfg)
 
     def _solve(self, prob: BAProblem):
@@ -317,15 +319,29 @@ class WindowedBA:
     PIPELINE_DEPTH = 2  # keyframes between a solve's dispatch and its collect
 
     def dispatch(self) -> bool:
-        """Assemble + launch the current window's solve WITHOUT reading the result: its host
-        copies start now, on the stream of the solve and before any later solve can overwrite
-        a graph's outputs, and are read PIPELINE_DEPTH keyframes later (collect()).
-        Returns whether a solve was launched."""
+        """Assemble + launch the current window's solve WITHOUT reading the result (``prepare``,
+        then ``launch``). Returns whether a solve was launched."""
+        return self.launch(self.prepare())
+
+    def prepare(self):
+        """The host half of ``dispatch``: the current window's problem, assembled and uploaded on
+        the current stream, with the window's frame indices -> (BAProblem, [frame_idx]), or None
+        where the window has nothing to solve."""
         prob = self._assemble()
         if prob is None:
+            return None
+        return prob, [kf.frame_idx for kf in self.window]
+
+    def launch(self, prepared) -> bool:
+        """The device half of ``dispatch``: solve a ``prepare``d problem on the current stream
+        without reading the result. Its host copies start now, on the stream of the solve and
+        before any later solve can overwrite a graph's outputs, and are read PIPELINE_DEPTH
+        keyframes later (collect()). Returns whether a solve was launched."""
+        if prepared is None:
             return False
+        prob, kf_idxs = prepared
         res = self._solve(prob)
-        self._pending.append((HostCopy(res.T_c2w, res.cost, res.cost0), [kf.frame_idx for kf in self.window]))
+        self._pending.append((HostCopy(res.T_c2w, res.cost, res.cost0), kf_idxs))
         return True
 
     def drop_pending(self) -> None:

@@ -28,8 +28,29 @@ main thread. All are captured in the warm-up, the worker's first job, while
 the constructor blocks the main thread, so no capture runs while the other
 thread launches; each has a memory pool of its own. Under a mesh each rank
 captures its own: the round and the descriptor hold no collective, and the
-landmark-sharded solve is captured over the worker's NCCL group and eager
-over a gloo one (utils.graphs.wanted decides each program by itself).
+landmark-sharded solve is captured over an NCCL group and eager over a gloo
+one (utils.graphs.wanted decides each program by itself).
+
+ONE ORDER OF COLLECTIVES. Under a mesh whose "model" axis is larger than
+one, the window solve is landmark-sharded (dist.ba_sharded), and its
+all-reduces go over the same ranks as the frame loop's RANSAC all-gathers.
+NCCL kernels block until every peer has launched theirs, so every rank must
+issue the two in one order, and the worker's host work takes a time that
+differs from rank to rank. So the worker only PREPARES each solve (the
+closer, ``collect``, the association and the window assembly, as
+everywhere); the frame loop's thread LAUNCHES it, on its own stream, at a
+fixed point: inside ``submit`` of the keyframe that comes three after the
+one whose job prepared it, before that job is queued (``_launch_next``). The
+frame loop blocks on the host until the worker has handed that problem
+over, never on the device. A solve launched there is in the solver's
+in-flight list before the worker's next ``collect``, exactly as when the
+worker launched it, so the trajectory is the same. The drains (``close``,
+``checkpoint_state``) launch the last problems from the waiting main thread
+as the worker hands them over, and the worker processes the next job only
+once the main thread has launched the previous one's solve. Every
+collective of a rank then comes from one thread on one stream, in an order
+fixed by frame index, over the mesh's own group. Without a mesh, or with a
+"model" axis of one, the worker launches its solves itself.
 """
 from __future__ import annotations
 
@@ -43,7 +64,7 @@ import numpy as np
 import torch
 
 from ..config import PipelineConfig
-from ..dist.mesh import axis_size, new_axis_group
+from ..dist.mesh import axis_size
 from ..geom.camera import StereoCalib
 from ..utils import graphs
 from ..utils.device import resolve
@@ -155,14 +176,9 @@ class RefinerWorker:
         on the CPU, False eagerly, True on the CPU raises; under a mesh, a sharded window solve
         whose group is a gloo group runs eagerly (``graph=True`` then raises; module docstring).
 
-        ``mesh`` with a "model" axis > 1 shards the window solve over it. The solve's
-        collectives then run on this worker's thread (and CUDA stream) while the frame
-        loop's RANSAC gathers on the main thread, over the same ranks: two threads must
-        never share a communicator, so the worker gets a process group of its own, created
-        here. That creation is collective: every rank of the world builds its worker at the
-        same point of its program. What the worker decides never depends on timing (jobs in
-        FIFO order, solves collected a fixed number of keyframes later), so every rank's
-        worker issues the same collectives in the same order."""
+        ``mesh`` with a "model" axis > 1 shards the window solve over it, and the thread that
+        calls ``submit`` launches every solve (module docstring: one order of collectives); its
+        warm-up, and the capture where there is one, run here on the calling thread."""
         self.calib = calib
         self.cfg = cfg
         self.device = resolve(device)
@@ -174,9 +190,17 @@ class RefinerWorker:
         if use_ba:
             from .ba_runner import WindowAssociator, WindowedBA
 
-            group = new_axis_group(mesh, "model") if axis_size(mesh, "model") > 1 else None
-            self.wba = WindowedBA(calib, cfg.ba, device=self.device, mesh=mesh, group=group, graph=graph)
+            self.wba = WindowedBA(calib, cfg.ba, device=self.device, mesh=mesh, graph=graph)
             self.associator = WindowAssociator(cfg.ba.window)
+        # The sharded solve is launched by the main thread (module docstring): the worker hands
+        # each job's prepared problem over in ``_prepared``, (problem or None, upload event); the
+        # main thread owes a launch for every job in ``_owed`` and releases ``_launched`` after each.
+        self._hand_over = use_ba and axis_size(mesh, "model") > 1
+        self._prepared: queue.Queue = queue.Queue()
+        self._launched = threading.Semaphore(0)
+        self._owed = 0
+        self._unlaunched = False  # worker: a problem it handed over may not be launched yet
+        self.launch_wait_s = 0.0  # main-thread time blocked in submit on a problem not yet handed over
         if use_loop_closure:
             from ..slam.loop_closure import LoopCloser
 
@@ -210,9 +234,11 @@ class RefinerWorker:
         # caller's timed loop.
         self._q.put(_WARMUP)
         self.wait_pending()
+        if self._hand_over:
+            self.wba.warmup()
 
     def _warmup(self) -> None:
-        if self.wba is not None:
+        if self.wba is not None and not self._hand_over:
             self.wba.warmup()
         if self.lclo is None:
             return
@@ -256,7 +282,45 @@ class RefinerWorker:
             query=query if self.lclo is not None else None,
             host=(names, HostCopy(*arrs)),
         )
+        if self._hand_over:
+            # The worker processes job k when job k + 2 arrives, so before job k + 3 goes in,
+            # job k's solve is launched here: the worker's next collect finds it in flight.
+            t = time.perf_counter()
+            while self._owed > 2:
+                self._launch_next()
+            self.launch_wait_s += time.perf_counter() - t
+            self._owed += 1
         self._q.put(job)
+
+    def _launch_next(self) -> None:
+        """Main thread: launch the solve the worker prepared from the oldest job still owed, on
+        the current stream, once the worker has handed it over (a worker error is raised here)."""
+        while True:
+            try:
+                prepared, uploaded = self._prepared.get(timeout=0.05)
+                break
+            except queue.Empty:
+                if self._error is not None:
+                    err, self._error = self._error, None
+                    raise err
+        self._owed -= 1
+        if prepared is not None and uploaded is not None:
+            # The problem was uploaded on the worker's stream: order this stream after the
+            # upload, and keep the allocator from handing its memory back to the worker early.
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(uploaded)
+            for t in prepared[0]:
+                t.record_stream(stream)
+        self.wba.launch(prepared)
+        self._launched.release()
+
+    def _drain(self, sentinel) -> None:
+        """Queue ``sentinel`` (_FLUSH or None), launch the solves the worker prepares from the staged
+        jobs as it hands them over (none owed where the worker launches its own), and wait for it."""
+        self._q.put(sentinel)
+        while self._owed > 0:
+            self._launch_next()
+        self.wait_pending()
 
     def wait_pending(self) -> None:
         """Block until the worker has consumed every submitted job. NB: the
@@ -325,11 +389,8 @@ class RefinerWorker:
     def close(self) -> None:
         """Drain the queue and stop the thread."""
         self._q.join()
-        self._q.put(None)
+        self._drain(None)  # raises a worker error
         self._thread.join(timeout=60.0)
-        if self._error is not None:
-            err, self._error = self._error, None
-            raise err
 
     # -- checkpoint / resume --------------------------------------------------
     #
@@ -346,8 +407,7 @@ class RefinerWorker:
         read to the host here."""
         from .checkpoint import generator_fields
 
-        self._q.put(_FLUSH)
-        self.wait_pending()
+        self._drain(_FLUSH)
         p: dict = {}
         with self._lock:
             order = list(self._kf_order)
@@ -525,11 +585,20 @@ class RefinerWorker:
 
     # -- worker thread --------------------------------------------------------
 
+    def _await_launch(self) -> None:
+        """Worker: wait until the main thread has launched the last problem handed over (at once
+        in the frame loop, where it was launched before the job that woke the worker was queued;
+        in a drain, as the main thread gets to it)."""
+        if self._unlaunched:
+            self._launched.acquire()
+            self._unlaunched = False
+
     def _finalize(self) -> None:
         """Collect the final in-flight work (the pipelined dispatches at the
         last keyframe have no successor to collect them): the last window
         solve, then the LoopCloser's last verification round, folding an
         end-of-run closure into the ledger."""
+        self._await_launch()
         if self.wba is not None:
             for kf_idxs, T_new in self.wba.collect(drain=True):
                 self._ba_solves += 1
@@ -599,6 +668,7 @@ class RefinerWorker:
                 self._q.task_done()
 
     def _process(self, job: _KeyframeJob) -> None:
+        self._await_launch()
         t0 = time.perf_counter()
         names, copy = job.host
         if self._stream is not None and copy.event is not None:
@@ -721,5 +791,14 @@ class RefinerWorker:
             # later, so the solve costs the worker only the host-side
             # assemble (~ms), not the ~120 ms device round trip it used to.
             t0 = time.perf_counter()
-            self.wba.dispatch()
+            if self._hand_over:  # the main thread launches it (module docstring)
+                prepared = self.wba.prepare()
+                uploaded = None
+                if prepared is not None and self._stream is not None:
+                    uploaded = torch.cuda.Event()
+                    uploaded.record(self._stream)
+                self._unlaunched = True
+                self._prepared.put((prepared, uploaded))
+            else:
+                self.wba.dispatch()
             self._phase_s["ba_dispatch"] += time.perf_counter() - t0

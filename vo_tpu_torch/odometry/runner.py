@@ -24,8 +24,9 @@ descriptor ring). On a CUDA device that association, and the refiner's window
 solve, verification round and global descriptor, are CUDA graphs too, each
 with a pool of its own (``graph=False`` runs them eagerly; the refiner
 captures its programs in its warm-up, this module the association after it).
-The frame loop's only host waits are the refiner's ``throttle`` and the final
-synchronise. Corrections live in the worker's
+The frame loop's only host waits are the refiner's ``throttle``, under a
+mesh its ``submit`` (which waits for a window problem the worker has not
+handed over yet), and the final synchronise. Corrections live in the worker's
 frame, and the full trajectory is re-anchored onto the corrected keyframes
 at the end (odometry.correction).
 
@@ -49,8 +50,11 @@ With ``mesh`` (dist.mesh.make_mesh) the run is SPMD: every rank of the mesh
 calls ``run_sequence`` with the same arguments, keeps the same replicated
 state and returns the same ``RunResult``. Detection is sharded over "data",
 RANSAC hypotheses over "model", and with ``use_ba`` the window solve's
-landmarks over "model" too. Each rank captures and replays its own graphs,
-program by program (utils.graphs.wanted): with a card per rank (NCCL) the
+landmarks over "model" too; the frame loop's thread launches those solves
+between its steps, at fixed keyframes, so that every rank issues the step's
+and the solve's collectives in one order (odometry.refiner). Each rank
+captures and replays its own graphs, program by program
+(utils.graphs.wanted): with a card per rank (NCCL) the
 step and the sharded solve too, their collectives inside them; where ranks
 share a card (gloo) those two step and solve eagerly and the programs without
 a collective (association, round, descriptor) are still graphs. Only rank 0
@@ -528,7 +532,7 @@ def run_sequence(
         if refiner is not None:
             refiner.close()
             refine_stats = dict(refiner.stats)
-            refine_stats["main_wait_s"] = round(kfs.wait_s, 3)
+            refine_stats["main_wait_s"] = round(kfs.wait_s + refiner.launch_wait_s, 3)
             kf_idx, kf_poses = refiner.corrected_keyframes()
             # History row for frame i is i-1 (all_poses convention, VO.m:133).
             kf_rows = kf_idx - 1
