@@ -165,7 +165,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      capacity at or under ``min_gap`` (20) leaves no keyframe old enough to be a
      candidate, so no loop can close here: the phase fails unless ``vo_lc``
      verified none and equals ``vo``'s ATE within 0.02 m (it steps frame by frame);
-     the full run is where closures fire;
+     the full run is where closures fire. Then the same decimating ``vo_lc`` run with
+     ``graph=False`` (``bigrun_torch.run_one``) must equal the graphed one bit for bit
+     (``require_bit_equal``, keyframes, decimations, verified candidates and closures, and
+     ``bigrun_torch.first_difference`` finds nothing); ``tools/diag_ba_torch.py``'s hook over
+     the first 60 frames of the phase-5 feed (graphed) must log a solve with cost <= cost0 and
+     ``last_result.n_obs`` > 30; ``tools/diag_lc_torch.py``'s hook over phase 6's closure feed
+     must log a closure that brings the keyframes nearer the truth. It prints the seconds the
+     additions took;
  15. the captured steps against the eager ones: phase 4's 30-frame run and
      phase 5's 199-frame refined run (both graphed) against the same runs with
      ``graph=False``, bit for bit (poses, relative poses, n_inliers, n_tracks,
@@ -186,7 +193,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      first 10 frames of the plain feed and the first 20 of the refined one;
      tools/profile_torch_step.frame_loop_trace);
 The line before the last is a JSON summary of the kernels: ``launches`` summed
-over the counted runs of phases 4, 5, 7, 8, 9, rank 0 of phase 12, 13, 14 and 15's one replay (``launches_by_path`` has each;
+over the counted runs of phases 4, 5, 7, 8, 9, rank 0 of phase 12, 13, 14 (the graphed runs, the eager one and the two
+diagnostics' runs) and 15's one replay (``launches_by_path`` has each;
 the counters are reset just before each path and read just after), ``max_abs_err`` the largest of the three batches' (``max_abs_err_by_batch`` has
 each), ``ms`` the one-launch detection call of 4 images with cold inputs, ``octave0_ms``, ``per_octave_launches_ms`` and
 ``copy_same_bytes_ms`` timed the same way, ``back_to_back_ms``, ``plain_ms``
@@ -271,6 +279,7 @@ LONGRUN_FRAMES = 40  # phase 13: the first frames of the phase-5 feed
 SWEEP_EXTRA_NOISE = 0.08  # phase 14: load-time noise on the phase-5 feed (the full run's severity)
 SMALL_CAPACITY = 16  # phase 14: LoopConfig.max_keyframes
 SMALL_CAPACITY_DECIMATIONS = 3  # phase 14: the reference LoopCloser's for 39 keyframes at capacity 16
+DIAG_BA_FRAMES = 60  # phase 14: diag_ba_torch's hook over the first frames of the phase-5 feed
 POSE_OK_FRAC_MIN = 0.95  # phase 14
 PROFILE_PLAIN_FRAMES, PROFILE_REFINED_FRAMES = 10, 20  # phase 15: the profiles' first frames of the two feeds
 # The refined path's programs captured apart from the step (utils.graphs.StaticCall names): phase 5 and 15.
@@ -535,7 +544,7 @@ def refined_path(feed: OutAndBackFeed, cfg: PipelineConfig, device):
     return launches, res
 
 
-def closure_fires(feed: OutAndBackFeed, cfg: PipelineConfig, device) -> None:
+def closure_fires(feed: OutAndBackFeed, cfg: PipelineConfig, device, tag: str = "[6]") -> None:
     """Phase 6: keyframes with growing drift through a default-config LoopCloser on the card."""
     calib = feed.calib.to(device)
     lc = LoopCloser(feed.calib, cfg.loop, matcher=cfg.matcher, device=device)
@@ -566,7 +575,7 @@ def closure_fires(feed: OutAndBackFeed, cfg: PipelineConfig, device) -> None:
     err_drift = DRIFT_PER_KF_M * kf_frames.index(fi)
     err = float(np.linalg.norm(fired["corrected"][new_k][:3, 3] - gt[fi][:3, 3]))
     print(
-        f"[6] loop closure on the card: {len(kf_frames)} keyframes, {lc.n_verified} candidates verified, "
+        f"{tag} loop closure on the card: {len(kf_frames)} keyframes, {lc.n_verified} candidates verified, "
         f"loop {old_k}->{new_k} (frames {lc.keyframes[old_k].frame_idx}->{fi}), newest loop keyframe error "
         f"{err:.4f} m against {err_drift:.4f} m drifted, {lc.skipped_small} skipped as small, "
         f"phase seconds {json.dumps({k: round(v, 4) for k, v in lc.phase_s.items()})}"
@@ -1340,7 +1349,9 @@ def reference_scale_tools(feed5, cfg: PipelineConfig, device, launches_by_path: 
     t_load = time.perf_counter() - t
     small = dataclasses.replace(cfg, loop=dataclasses.replace(cfg.loop, max_keyframes=SMALL_CAPACITY))
     t = time.perf_counter()
-    out = counted(launches_by_path, "bigrun", lambda: bigrun.run_configs(staged, gt, times, small, ["vo", "vo_lc"], device))
+    kept: dict = {}
+    out = counted(launches_by_path, "bigrun",
+                  lambda: bigrun.run_configs(staged, gt, times, small, ["vo", "vo_lc"], device, keep=kept))
     vo, lc = out["configs"]["vo"], out["configs"]["vo_lc"]
     keep = ("frames_per_sec", "ate_rmse_m", "xz_max_m", "pose_ok_frac", "peak_memory_bytes", "n_keyframes", "decimations",
             "lc_verified", "loops_closed", "main_wait_s")
@@ -1365,6 +1376,43 @@ def reference_scale_tools(feed5, cfg: PipelineConfig, device, launches_by_path: 
         raise AssertionError(f"vo_lc verified or closed a loop with no candidate possible, or left vo: {lc}")
     if min(launches_by_path["bigrun"][k] for k in KERNELS) <= 0:
         raise AssertionError(f"run_configs did not launch both kernels: {launches_by_path['bigrun']}")
+
+    # The decimating vo_lc run again with graph=False: bit for bit, keyframes and decimations too.
+    t = t_added = time.perf_counter()
+    eager, eager_row, _ = counted(launches_by_path, "bigrun_eager",
+                                  lambda: bigrun.run_one(staged, gt, small, "vo_lc", device, graph=False))
+    require_bit_equal(kept["vo_lc"], eager, "phase 14: the decimating vo_lc run graphed against graph=False")
+    stats = ("n_keyframes", "decimations", "lc_verified", "loops_closed")
+    if [lc[k] for k in stats] != [eager_row[k] for k in stats] or bigrun.first_difference(kept["vo_lc"], eager) is not None:
+        raise AssertionError(f"phase 14: graphed {[lc[k] for k in stats]} against eager {[eager_row[k] for k in stats]}")
+    print(f"     vo_lc with graph=False ({time.perf_counter() - t:.1f} s, {eager_row['frames_per_sec']:.3f} fps, "
+          f"peak memory {eager_row['peak_memory_bytes']} bytes): equal bit for bit to the graphed run, "
+          f"{eager_row['n_keyframes']} keyframes, {eager_row['decimations']} decimations")
+    del staged, kept, eager
+
+    # The two diagnostic tools' hooks on the card: diag_ba_torch over the first frames of phase 5's feed
+    # (graphed), diag_lc_torch over phase 6's closure feed.
+    t = time.perf_counter()
+    diag_ba, diag_lc = load_tool("diag_ba_torch"), load_tool("diag_lc_torch")
+    _, log = counted(launches_by_path, "diag_ba", lambda: diag_ba.run(feed5, gt, cfg, device, DIAG_BA_FRAMES))
+    t_ba = time.perf_counter() - t
+    print(f"     diag_ba_torch over the first {DIAG_BA_FRAMES} frames of phase 5's feed ({t_ba:.1f} s): "
+          f"{len(log.rows)} solves past the cost gate, {json.dumps(log.counts())}, last n_obs {log.last_n_obs}")
+    for row in log.rows:
+        print(f"       {json.dumps(row)}")
+    if not (any(r["cost"] <= r["cost0"] for r in log.rows) and log.last_n_obs is not None and log.last_n_obs > 30):
+        raise AssertionError(f"diag_ba_torch: no solve with cost <= cost0 and n_obs > 30 ({log.rows})")
+    t = time.perf_counter()
+    closures = diag_lc.ClosureLog()
+    with closures.installed():
+        counted(launches_by_path, "diag_lc", lambda: closure_fires(feed5, cfg, device, tag="     diag_lc_torch's hook:"))
+    rows = closures.rows(gt)
+    print(f"     diag_lc_torch over phase 6's feed ({time.perf_counter() - t:.1f} s): {len(rows)} closures")
+    for row in rows:
+        print(f"       {json.dumps(row)}")
+    if not any(r["kf_rms_after"] < r["kf_rms_before"] for r in rows):
+        raise AssertionError(f"diag_lc_torch: no closure brought the keyframes nearer the truth ({rows})")
+    print(f"     phase 14's additions took {time.perf_counter() - t_added:.1f} s")
 
 
 def replay_trace(fn, path: str) -> tuple:
@@ -1456,8 +1504,7 @@ def graphed_against_eager(feed, feed5, cfg: PipelineConfig, device, plain: runne
     step1(pipeline.init_state(cfg, 0, device), landmarks.init_map(cfg.landmarks, device), *frames[:2])
     torch.cuda.synchronize()
     capture_single_s = time.perf_counter() - t_cap
-    pools_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                      if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+    pools_bytes = graphs.pools_bytes()
     r = counted(launches_by_path, "one_replay", lambda: stepN(r[0], r[1], *frames))
     if launches_by_path["one_replay"] != {k: 1 for k in KERNELS}:
         raise AssertionError(f"one replay of the group step accounted {launches_by_path['one_replay']}, expected one launch of each kernel")

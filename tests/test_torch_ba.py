@@ -378,9 +378,77 @@ def test_collect_makes_the_reference_decisions(ref, calib):
     for T, cost, cost0, ki in cases:
         T = T.astype(np.float32)
         r_ba._pending.append((ref.win.BAResult(T, np.zeros((0, 3)), np.float32(cost0), np.float32(cost), 0), ki))
-        port._pending.append((HostCopy(*(torch.tensor(np.asarray(x, np.float32)) for x in (T, cost, cost0))), ki))
+        fields = (T, np.zeros((0, 3)), cost0, cost, 0.0)  # the port's pending copy holds the whole BAResult
+        port._pending.append((HostCopy(*(torch.tensor(np.asarray(x, np.float32)) for x in fields)), ki))
     r_out, p_out = r_ba.collect(drain=True), port.collect(drain=True)
     assert [k for k, _ in p_out] == [k for k, _ in r_out] == [idxs, idxs]
     for (_, a), (_, b) in zip(p_out, r_out):
         np.testing.assert_array_equal(a, b)
     assert port.n_rejected == r_ba.n_rejected == 2
+    # last_result: the last solve past the cost gate (the stale window's), set before the correction gate
+    np.testing.assert_array_equal(port.last_result.T_c2w, np.asarray(r_ba.last_result.T_c2w))
+    assert float(port.last_result.cost) == float(r_ba.last_result.cost) == 1.0
+
+
+def test_windowed_ba_solver_engaged(ref, rng, calib, gt):
+    """tests/test_ba_runner.py::test_windowed_ba_solver_engaged on a window made from a numpy seed:
+    both packages' ``WindowedBA.optimize`` solve it as the keyframes come and keep the solve in
+    ``last_result``; the port's cost0 and cost are the reference's within 1e-3 relative
+    (test_solve_window_matches_reference's tolerance), n_obs equal, T_c2w within 1e-4 m."""
+    cfg = BAConfig(window=6, max_points=256, iters=6)
+    r_ba = ref.bar.WindowedBA(ref.calib, cfg)
+    port = p_bar.WindowedBA(calib, cfg, device="cpu")
+    assert port.last_result is None and r_ba.last_result is None
+    engaged = False
+    for kf in _window_keyframes(rng, calib, gt):
+        r_kf = ref.bar.Keyframe(**{n: np.copy(v) if isinstance(v, np.ndarray) else v for n, v in kf.items()})
+        r_ba.add_keyframe(r_kf)
+        port.add_keyframe(convert.keyframe_from_numpy(r_kf))
+        r_got, p_got = r_ba.optimize(), port.optimize()
+        assert (r_got is None) == (p_got is None)
+        engaged |= p_got is not None
+        assert (port.last_result is None) == (r_ba.last_result is None)
+        if port.last_result is None:
+            continue
+        got, want = port.last_result, r_ba.last_result
+        np.testing.assert_allclose(float(got.cost0), float(want.cost0), rtol=1e-3)
+        np.testing.assert_allclose(float(got.cost), float(want.cost), rtol=1e-3)
+        assert int(got.n_obs) == int(want.n_obs)
+        np.testing.assert_allclose(got.T_c2w[:, :3, 3], np.asarray(want.T_c2w)[:, :3, 3], atol=TOL)
+    assert engaged
+    lr = port.last_result
+    assert all(isinstance(x, np.ndarray) for x in lr)  # host values, not device tensors
+    assert lr.T_c2w.shape == (cfg.window, 4, 4) and lr.X.shape == (cfg.max_points, 3)
+    assert float(lr.cost) <= float(lr.cost0)
+    assert int(lr.n_obs) > 30
+
+
+def test_last_result_is_a_copy_set_past_the_cost_gate(rng, calib, gt):
+    """``last_result`` changes only for a solve that passes the cost gate (a cost rise or a
+    non-finite cost leaves it), also where the correction gate then rejects it, and a later solve
+    leaves the arrays of the earlier one as they were."""
+    wba = p_bar.WindowedBA(calib, BAConfig(window=6, max_points=256, iters=4), device="cpu")
+    for kf in _window_keyframes(rng, calib, gt):
+        wba.add_keyframe(p_bar.Keyframe(**kf))
+    assert wba.optimize() is not None
+    first = wba.last_result
+    kept = [np.array(x) for x in first]
+    idxs = [kf.frame_idx for kf in wba.window]
+    T = np.stack([kf.pose_c2w for kf in wba.window]).astype(np.float32)
+
+    def pend(T, cost0, cost):
+        fields = (T, np.zeros((256, 3)), cost0, cost, 7.0)
+        wba._pending.append((HostCopy(*(torch.tensor(np.asarray(x, np.float32)) for x in fields)), idxs))
+
+    pend(T, 2.0, 3.0)
+    pend(T, 2.0, np.nan)
+    assert wba.collect(drain=True) == [] and wba.last_result is first
+    far = T.copy()
+    far[:, 0, 3] += 5.0  # past the cost gate, rejected by the correction gate
+    pend(far, 2.0, 1.0)
+    assert wba.collect(drain=True) == [] and wba.n_rejected == 1
+    assert wba.last_result is not first and float(wba.last_result.cost) == 1.0
+    np.testing.assert_array_equal(wba.last_result.T_c2w, far)
+    assert wba.optimize() is not None and wba.last_result.T_c2w is not first.T_c2w
+    for a, b in zip(first, kept):
+        np.testing.assert_array_equal(a, b)

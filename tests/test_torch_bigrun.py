@@ -33,7 +33,7 @@ CAPACITY = 3
 KEYS = {"frames_per_sec", "per_frame_ms", "ate_rmse_m", "ate_max_m", "xz_mean_m", "xz_max_m", "pose_ok_frac",
         "tracks_mean", "inliers_mean"}
 LC_KEYS = {"loops_closed", "ba_solves", "loops_skipped_small", "decimations", "lc_verified", "main_wait_s", "n_keyframes"}
-PORT_KEYS = {"xz_final_m", "peak_memory_bytes"}
+PORT_KEYS = {"xz_final_m", "peak_memory_bytes", "pool_bytes", "graphed", "n_keyframes", "decimations"}
 
 
 def _load(path: Path, name: str):
@@ -129,8 +129,10 @@ def test_payload_has_the_reference_keys(payload):
     assert KEYS | LC_KEYS | PORT_KEYS <= set(lc)
     for row in (vo, lc):
         assert all(np.isfinite(row[k]) for k in KEYS)
-        assert row["pose_ok_frac"] >= 0.9 and row["peak_memory_bytes"] is None
+        assert row["pose_ok_frac"] >= 0.9 and row["peak_memory_bytes"] is None and row["pool_bytes"] is None
+        assert row["graphed"] is False  # the CPU steps eagerly
     assert vo["ate_rmse_m"] < 0.1
+    assert (vo["n_keyframes"], vo["decimations"]) == (0, 0) and out["graphed"] is False
 
 
 def test_keyframes_and_decimations_equal_the_reference_loop_closer(payload):
@@ -205,3 +207,59 @@ def test_main_refuses_an_unknown_config(bigrun, capsys):
     with pytest.raises(SystemExit) as e:
         bigrun.main(["--cpu", "--configs", "vo,vo_xx"])
     assert e.value.code == 2 and "vo_xx" in capsys.readouterr().err
+
+
+def _result(rng, n=8, n_lm=5):
+    return p_runner.RunResult(
+        poses=rng.normal(size=(n, 4, 4)).astype(np.float32), rel_poses=rng.normal(size=(n, 4, 4)).astype(np.float32),
+        n_inliers=rng.integers(0, 99, n), n_tracks=rng.integers(0, 99, n), pose_ok=np.ones(n, bool),
+        landmarks=rng.normal(size=(n_lm, 3)).astype(np.float32), frames_per_sec=1.0, per_frame_ms=1.0,
+        refine_stats=dict(n_keyframes=3, decimations=1, lc_verified=2, loops_closed=1),
+    )
+
+
+def test_first_difference_names_the_first_frame_and_field(bigrun):
+    """Equal runs give None; otherwise the earliest differing frame (history row r is frame r + 1) with
+    every field that differs there, and apart the landmarks' row and the refiner's counts."""
+    a = _result(np.random.default_rng(3))
+    b = _result(np.random.default_rng(3))
+    assert bigrun.first_difference(a, b) is None
+    b.n_inliers[4] += 1
+    b.poses[4, 0, 3] += 0.5
+    b.rel_poses[6, 1, 1] = np.nan
+    assert bigrun.first_difference(a, b) == dict(frame=5, fields=["poses", "n_inliers"],
+                                                 max_abs_pose_diff=pytest.approx(0.5, rel=1e-5))
+    a.rel_poses[6, 1, 1] = np.nan  # NaN against NaN differs too: equal means the same bits
+    assert bigrun.first_difference(a, b)["frame"] == 5
+    c = _result(np.random.default_rng(3))
+    c.landmarks[2, 1] += 1.0
+    c.refine_stats["decimations"] = 2
+    assert bigrun.first_difference(_result(np.random.default_rng(3)), c) == dict(
+        max_abs_pose_diff=0.0, other={"landmarks": "row 2 of 5"}, refine_stats={"decimations": (1, 2)})
+
+
+@pytest.mark.parametrize("flag,configs", [("--eager", "vo"), ("--compare", "vo_lc")])
+def test_main_eager_and_compare(bigrun, flag, configs, tmp_path):
+    """6 frames at half size on the CPU: ``--eager`` runs with graph=False (``graphed`` false);
+    ``--compare`` runs each configuration again eagerly and finds the two equal bit for bit (on the
+    CPU both are eager: the check that a run repeats), with the eager run's figures beside."""
+    out = tmp_path / "big.json"
+    assert bigrun.main(["--cpu", "--frames", "6", "--image-size", "188,620", "--configs", configs, flag,
+                        "--cache-dir", str(tmp_path), "--fig-dir", str(tmp_path / "figs"), "--workers", "1",
+                        "--out", str(out)]) == 0
+    payload = json.loads(out.read_text())
+    row = payload["configs"][configs]
+    assert payload["graphed"] is False and row["graphed"] is False and payload["image_size"] == [188, 620]
+    assert payload["compare"] is (flag == "--compare")
+    if flag == "--compare":
+        assert row["bit_equal_to_eager"] is True and "first_difference" not in row
+        assert set(row["eager"]) == set(bigrun.EAGER_KEYS) and row["eager"]["graphed"] is False
+        assert row["eager"]["ate_rmse_m"] == row["ate_rmse_m"] and row["n_keyframes"] == 1
+    else:
+        assert "bit_equal_to_eager" not in row and row["n_keyframes"] == 0
+
+
+def test_main_refuses_eager_with_compare(bigrun, capsys):
+    with pytest.raises(SystemExit) as e:
+        bigrun.main(["--cpu", "--eager", "--compare"])
+    assert e.value.code == 2 and "--compare" in capsys.readouterr().err

@@ -65,6 +65,29 @@ def test_rendered_frames_byte_identical(image_size):
             assert a.tobytes() == b.tobytes()
 
 
+@pytest.mark.parametrize("frame", [0, 3])
+def test_perspective_splats_equal_the_reference(frame):
+    """``SyntheticSequence(perspective_splats=True)`` at 94x311, 200 landmarks, seed 0: the reference's
+    frames within 1e-5. ``perspective_splats=False`` and the default render the reference's
+    fixed-size frames byte for byte. The option sits where the reference has it, before ``noise``."""
+    gt = p_kitti.read_poses(str(DATA / "kitti" / "poses" / "00.txt"))[:4]
+    r_calib = r_kitti.load_stereo_calib(str(DATA / "kitti" / "00"))
+    p_calib = p_kitti.load_stereo_calib(str(DATA / "kitti" / "00"))
+    kw = dict(n_landmarks=200, seed=0, image_size=(94, 311))
+    positional = p_syn.SyntheticSequence(p_calib, gt, None, 200, 9, 0, (94, 311), True, 0.0)
+    assert positional.perspective_splats and positional.noise == 0.0 and positional.z_ref == 20.0
+    persp = [im for im in positional.frame(frame)]
+    r_persp = r_syn.SyntheticSequence(r_calib, gt, perspective_splats=True, **kw).frame(frame)
+    flat = p_syn.SyntheticSequence(p_calib, gt, perspective_splats=False, **kw).frame(frame)
+    default = p_syn.SyntheticSequence(p_calib, gt, **kw).frame(frame)
+    r_flat = r_syn.SyntheticSequence(r_calib, gt, **kw).frame(frame)
+    for a, b, c, d, e in zip(persp, r_persp, flat, default, r_flat):
+        assert a.dtype == b.dtype == np.float32
+        np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)
+        assert c.tobytes() == d.tobytes() == e.tobytes()
+        assert not np.array_equal(a, c)  # the splats did change size
+
+
 @pytest.fixture(scope="module")
 def built():
     """The port's decoder, built from vo_tpu_torch/csrc/loader.cpp by the host compiler."""

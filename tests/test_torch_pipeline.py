@@ -190,7 +190,7 @@ def test_port_never_imports_jax():
         "import importlib, pkgutil, sys\n"
         "sys.path.insert(0, 'tools')\n"
         "import vo_tpu_torch, chip_smoke, bench_torch, profile_torch_step, longrun_torch, precision_torch\n"
-        "import bigrun_torch, render_cache_torch, severity_sweep_torch, measure_cpu_baseline_torch\n"
+        "import bigrun_torch, render_cache_torch, severity_sweep_torch, measure_cpu_baseline_torch, diag_ba_torch, diag_lc_torch\n"
         "for m in pkgutil.walk_packages(vo_tpu_torch.__path__, 'vo_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"

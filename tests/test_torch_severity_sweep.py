@@ -90,7 +90,7 @@ def test_main_rows(sweep, cache, tmp_path, capsys):
     ref_keys = {"config", "extra_noise", "effective_sigma", "frames", "fps", "xz_mean_m", "xz_max_m", "xz_final_m",
                 "ate_rmse_m", "pose_ok_frac", "tracks_mean", "inliers_mean", "ref_xz_at_t"}
     for r in rows:
-        assert ref_keys <= set(r) and r["frames"] == 3 and r["device_kind"] == "cpu"
+        assert ref_keys <= set(r) and r["frames"] == 3 and r["device_kind"] == "cpu" and r["graphed"] is False
         assert np.isfinite(r["ate_rmse_m"]) and r["pose_ok_frac"] == 1.0
         assert r["effective_sigma"] == pytest.approx((0.02**2 + 0.05**2) ** 0.5)
     assert "digitized reference xz error" in capsys.readouterr().out

@@ -162,6 +162,40 @@ def test_window_solves_over_static_buffers_equal_eager(static):
     assert graphs.PROGRAMS["window_solve"]["replays"] == 1 + 6  # warmup's, then keyframes 3..8
 
 
+def _last_results(device, graph) -> list:
+    """The window solves of ``_window_solves`` -> each new ``last_result`` as the worker's collect left it,
+    with a copy of its arrays taken then."""
+    wba = p_bar.WindowedBA(_calib(), p_config.BAConfig(), device=device, graph=graph)
+    wba.warmup()
+    seen = []
+    for kf in _window_keyframes(8) + [None]:
+        if kf is not None:
+            wba.add_keyframe(kf)
+            wba.dispatch()
+        wba.collect(drain=kf is None)
+        if wba.last_result is not None and (not seen or wba.last_result is not seen[-1][0]):
+            seen.append((wba.last_result, [np.array(x) for x in wba.last_result]))
+    return seen
+
+
+def _same_last_results(device) -> None:
+    got, want = _last_results(device, None), _last_results(device, False)
+    assert len(got) == len(want) >= 3
+    for (g, g_then), (w, _) in zip(got, want):
+        # Read after every later replay: still the values it had when collected, and eager's.
+        for a, b, c in zip(g, g_then, w):
+            assert isinstance(a, np.ndarray) and np.array_equal(a, b) and np.array_equal(a, c)
+        assert int(g.n_obs) > 30 and float(g.cost) <= float(g.cost0)
+    assert not any(np.array_equal(a[0].X, b[0].X) for a, b in zip(got, got[1:]))
+
+
+def test_last_result_over_static_buffers_is_a_copy(static):
+    """``WindowedBA.last_result`` of a graphed solve is a host copy taken at collect, not the static
+    outputs a later replay overwrites: every one keeps its values and equals the eager solve's."""
+    _same_last_results("cpu")
+    assert graphs.PROGRAMS["window_solve"]["replays"] == 1 + 6
+
+
 # ---- the verification round --------------------------------------------------------------------
 
 
@@ -533,6 +567,11 @@ def test_graph_true_raises_on_the_cpu_and_with_a_mesh():
 @pytest.mark.gpu
 def test_window_solves_on_the_card_equal_eager():
     _same_window_solves(_cuda())
+
+
+@pytest.mark.gpu
+def test_last_result_on_the_card_is_a_copy():
+    _same_last_results(_cuda())
 
 
 @pytest.mark.gpu

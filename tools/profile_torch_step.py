@@ -373,8 +373,7 @@ def mesh_rank(mesh, device, frames_path: str, gt_poses, use_ba: bool, graph, rep
         c = capture(*a, **k)
         torch.cuda.synchronize(device)
         captures.append(time.perf_counter() - t)
-        pool_bytes[0] = max(pool_bytes[0], sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                                               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0)))
+        pool_bytes[0] = max(pool_bytes[0], graphs.pools_bytes())
         return c
 
     graphs.capture = timed_capture

@@ -13,7 +13,8 @@ measures the spread of one configuration. Runs go through ``bigrun_torch.run_con
     python tools/severity_sweep_torch.py [--frames 1500] [--levels 0.0,0.05,0.1,0.15]
         [--cache PATH] [--base-noise 0.02] [--configs vo] [--seeds 0] [--out F.json] [--cpu]
 
-The current CUDA card unless ``--cpu``; the frames are staged on the device once per level.
+The current CUDA card unless ``--cpu``; the frames are staged on the device once per level. On
+the card the runs step through CUDA graphs (each row's ``graphed``).
 """
 from __future__ import annotations
 
@@ -112,6 +113,7 @@ def main(argv=None) -> int:
                     inliers_mean=r["inliers_mean"],
                     ref_xz_at_t=ref_now,
                     **{k: r[k] for k in ("loops_closed", "lc_verified", "n_keyframes", "main_wait_s") if k in r},
+                    graphed=r["graphed"],
                     device_kind=out["device_kind"],
                     power_limit_w=out["power_limit_w"],
                 )

@@ -133,6 +133,7 @@ class SyntheticSequence:
         patch: int = 9,
         seed: int = 0,
         image_size: tuple | None = None,
+        perspective_splats: bool = False,
         noise: float = 0.0,
         z_far: float = 100.0,
     ):
@@ -148,9 +149,12 @@ class SyntheticSequence:
         rng = np.random.default_rng(seed)
         self.landmarks = scatter_landmarks(rng, gt_poses, n_landmarks)
         self.patch = patch
+        # Fixed-size splats by default; ``perspective_splats`` magnifies each with 1/depth.
+        self.perspective_splats = perspective_splats
         self.noise = float(noise)
         self._seed = seed
         self.z_far = float(z_far)
+        self.z_ref = 20.0  # perspective mode only: the depth at which a splat spans ``patch`` px
         self.sigma_aa = 0.6  # anti-alias filter stddev, output px
         # Per-landmark Gaussian-mixture fingerprint in texel units: bump 0 is
         # the dominant center blob, bumps 1+ are weaker random side bumps.
@@ -175,7 +179,7 @@ class SyntheticSequence:
 
     def _render(self, pts_cam: np.ndarray, P: np.ndarray) -> np.ndarray:
         H, W, p = self.H, self.W, self.patch
-        pad = 40  # must exceed the largest half-splat
+        pad = 40  # must exceed the largest half-splat (the perspective scale's clamp)
         img = np.full((H + 2 * pad, W + 2 * pad), 0.35, dtype=np.float32)
         vis = (pts_cam[:, 2] > 1.0) & (pts_cam[:, 2] < self.z_far)
         px = project_np(P, np.where(vis[:, None], pts_cam, np.array([0.0, 0.0, 10.0])))
@@ -185,11 +189,14 @@ class SyntheticSequence:
         order = np.flatnonzero(inb)[np.argsort(-pts_cam[inb, 2])]
         for i in order:
             u, v = px[i]
-            oy = self._bump_cy[i]
-            ox = self._bump_cx[i]
-            var = self._bump_sig[i] ** 2 + s2aa  # [K], AA filter folded in
-            amp = self._bump_amp[i] * self._bump_sig[i] ** 2 / var
-            h = float(0.5 * p + 3.0 * np.sqrt(var.max()))
+            # Perspective magnification clamped to the padding; at s = 1 every product below is
+            # exact, so the fixed-size render is the same bytes either way.
+            s = min(self.z_ref / float(pts_cam[i, 2]), (pad - 4.0) / p) if self.perspective_splats else 1.0
+            oy = self._bump_cy[i] * s
+            ox = self._bump_cx[i] * s
+            var = (self._bump_sig[i] * s) ** 2 + s2aa  # [K], AA filter folded in
+            amp = self._bump_amp[i] * (self._bump_sig[i] * s) ** 2 / var
+            h = float(s * (0.5 * p) + 3.0 * np.sqrt(var.max()))
             r0, r1 = int(np.ceil(v - h)), int(np.floor(v + h))
             c0, c1 = int(np.ceil(u - h)), int(np.floor(u + h))
             r0, r1 = max(r0, -pad), min(r1, H + pad - 1)
@@ -203,7 +210,7 @@ class SyntheticSequence:
             gx = np.exp(-dx * dx * inv2v)
             vals = gy @ gx.T  # separable isotropic mixture: [By, Bx]
             # Opaque composite under a wide Gaussian alpha (keeps each center single-layer).
-            a_var = (0.55 * p) ** 2 + s2aa
+            a_var = (0.55 * p * s) ** 2 + s2aa
             ay = np.exp(ry * ry * (-0.5 / a_var))
             ax = np.exp(rx * rx * (-0.5 / a_var))
             alpha = 0.98 * ay[:, None] * ax[None, :]

@@ -24,8 +24,10 @@ a mesh).
 The host parts (triangulation, Keyframe, the union-find associator, the
 window assembly and the collect gate) are the reference's numpy code, copied
 because the reference module imports jax. The device solve is dispatched
-without reading it: its pose and cost copies to the host start at dispatch
-(utils.host_copy) and are read ``PIPELINE_DEPTH`` keyframes later.
+without reading it: the host copies of its whole result (poses, landmarks,
+costs and observation count) start at dispatch (utils.host_copy) and are
+read ``PIPELINE_DEPTH`` keyframes later; ``last_result`` keeps the last one
+that passed the cost gate, as host arrays.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..ba.window import BAProblem, solve_window
+from ..ba.window import BAProblem, BAResult, solve_window
 from ..config import BAConfig
 from ..convert import ba_problem_from_numpy
 from ..dist.ba_sharded import solve_window_sharded
@@ -179,8 +181,11 @@ class WindowedBA:
         self._graphed = graphs.wanted(graph, self.device, backends)
         self._call: Optional[graphs.StaticCall] = None  # the captured solve (at the first solve: warmup)
         self.window: deque = deque(maxlen=cfg.window)
+        # The last collected solve that passed the cost gate: a BAResult of host arrays, copied
+        # out before any later replay could overwrite a graph's outputs.
+        self.last_result: Optional[BAResult] = None
         self.n_rejected = 0  # solves discarded by the correction sanity gate
-        # In-flight solves: (HostCopy of T_c2w/cost/cost0, window frame_idxs at
+        # In-flight solves: (HostCopy of the BAResult's fields, window frame_idxs at
         # dispatch), collected PIPELINE_DEPTH keyframes later (dispatch()).
         self._pending: deque = deque()
         self.n_active: list[int] = []  # active landmarks per assembled window
@@ -341,7 +346,7 @@ class WindowedBA:
             return False
         prob, kf_idxs = prepared
         res = self._solve(prob)
-        self._pending.append((HostCopy(res.T_c2w, res.cost, res.cost0), kf_idxs))
+        self._pending.append((HostCopy(*res), kf_idxs))
         return True
 
     def drop_pending(self) -> None:
@@ -366,12 +371,13 @@ class WindowedBA:
         and non-compounding."""
         out = []
         while self._pending and (drain or len(self._pending) >= self.PIPELINE_DEPTH):
-            res, kf_idxs = self._pending.popleft()
-            T_c2w, cost, cost0 = res.numpy()
-            if not np.isfinite(float(cost)) or float(cost) > float(cost0):
+            copy, kf_idxs = self._pending.popleft()
+            res = BAResult(*copy.numpy())
+            if not np.isfinite(float(res.cost)) or float(res.cost) > float(res.cost0):
                 continue
+            self.last_result = res
             n = len(kf_idxs)
-            T_new = T_c2w[:n]
+            T_new = res.T_c2w[:n]
             # Sanity gate on the LAST keyframe's correction: beyond plausible
             # intra-window drift means the solve wandered (weak
             # conditioning); discard rather than corrupt the trajectory

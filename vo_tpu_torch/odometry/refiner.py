@@ -63,6 +63,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ba.window import BAResult
 from ..config import PipelineConfig
 from ..dist.mesh import axis_size
 from ..geom.camera import StereoCalib
@@ -473,11 +474,11 @@ class RefinerWorker:
             p["ba_ring_present"] = np.asarray([st is not None for st in slots], bool)
             p["ba_next"] = np.asarray(self.associator._next, np.int64)
             p["ba_rejected"] = np.asarray(w.n_rejected, np.int64)
-            for j, (res, kf_idxs) in enumerate(w._pending):
-                T_c2w, cost, cost0 = res.numpy()
-                p[f"ba_pend{j}_T"] = T_c2w
-                p[f"ba_pend{j}_cost"] = cost
-                p[f"ba_pend{j}_cost0"] = cost0
+            for j, (copy, kf_idxs) in enumerate(w._pending):
+                res = BAResult(*copy.numpy())
+                p[f"ba_pend{j}_T"] = res.T_c2w
+                p[f"ba_pend{j}_cost"] = res.cost
+                p[f"ba_pend{j}_cost0"] = res.cost0
                 p[f"ba_pend{j}_idxs"] = np.asarray(kf_idxs, np.int64)
         return p
 
@@ -579,7 +580,9 @@ class RefinerWorker:
             self.wba._pending.clear()
             j = 0
             while f"ba_pend{j}_T" in p:
-                res = _landed(p[f"ba_pend{j}_T"], p[f"ba_pend{j}_cost"], p[f"ba_pend{j}_cost0"])
+                # The checkpoint holds no landmarks or observation count, as the reference's.
+                res = _landed(p[f"ba_pend{j}_T"], np.zeros((0, 3), np.float32), p[f"ba_pend{j}_cost0"],
+                              p[f"ba_pend{j}_cost"], np.asarray(0))
                 self.wba._pending.append((res, [int(x) for x in p[f"ba_pend{j}_idxs"]]))
                 j += 1
 

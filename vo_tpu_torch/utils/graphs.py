@@ -103,6 +103,12 @@ class Pool:
                    if tuple(seg.get("segment_pool_id", ())) == tuple(self.handle))
 
 
+def pools_bytes() -> int:
+    """Device memory that the segments of every graph pool hold now (``torch.cuda.memory_snapshot``)."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
 class Captured:
     """A recorded step: ``replay()`` launches it and returns its static outputs."""
 
