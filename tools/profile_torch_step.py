@@ -104,6 +104,7 @@ from vo_tpu_torch.frontend.pyramid import build_pyramid  # noqa: E402
 from vo_tpu_torch.frontend.sift import _octave_caps, detect_and_describe  # noqa: E402
 from vo_tpu_torch.io import synthetic  # noqa: E402
 from vo_tpu_torch.odometry import landmarks, pipeline, runner  # noqa: E402
+from vo_tpu_torch.utils import profiling  # noqa: E402
 
 
 # An eager meshed run is traced over its first frames only: the profiler's Python post-processing of
@@ -154,8 +155,10 @@ def frame_loop_trace(run, n_frames: int, trace_path: str | None = None):
     evs = prof.events()
     loop = next(e for e in evs if e.name == runner.FRAME_LOOP and e.device_type != torch.autograd.DeviceType.CUDA)
     span = loop.time_range
-    dev = [e for e in evs if e.device_type == torch.autograd.DeviceType.CUDA and e.name != runner.FRAME_LOOP
-           and e.time_range.start >= span.start]
+    # (a span's device-side annotation is no device work, and the tracer's stage stamps, which a run
+    # under the profiler writes, are no work of the step's: the port's spans are named vo_tpu_torch.*)
+    dev = [e for e in evs if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith("vo_tpu_torch.")
+           and profiling.STAMP_KERNEL not in e.name and e.time_range.start >= span.start]
     launches = [e for e in evs if e.name in HOST_LAUNCH_CALLS and e.time_range.start >= span.start]
     inside = [e for e in launches if e.time_range.start <= span.end]
     host = collections.Counter(e.name for e in inside)

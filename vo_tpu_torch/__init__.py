@@ -3,7 +3,8 @@
 A module-for-module port of the JAX package ``vo_tpu`` (which stays the
 reference): same layout and names, PyTorch idiom inside. The two Pallas TPU
 kernels of the front-end are hand-written CUDA C++ for Hopper (``csrc/``),
-built with ``nvcc`` at first use (``frontend/kernels.py``).
+built with ``nvcc`` at first use (``frontend/kernels.py``), beside the tracer's one-thread
+stage stamp (``csrc/stage_stamp.cu``, ``utils/profiling.py``).
 
 Ported: ``odometry.runner.run_sequence`` on the plain path and on the refined
 path (window BA + loop closure through the background refiner), with
@@ -33,7 +34,8 @@ Subpackages:
   slam      loop closure
   eval      trajectory metrics
   utils     fixed-capacity padding/masking, non-waiting host/device copies, the default device, scoped matmul precision,
-            profiling (timers, metrics JSONL, torch.profiler trace), debugging (non-finite trap, launch counts)
+            profiling (the tracer: spans and device stage stamps; metrics JSONL, torch.profiler trace),
+            debugging (non-finite trap, launch counts)
   viz       the reference's four figures (matplotlib, imported only where drawn)
 """
 

@@ -5,7 +5,9 @@ K2 ``bin_maps`` replaces vo_tpu/frontend/pallas_kernels.py::bin_maps_pallas. The
 sources are ``vo_tpu_torch/csrc/*.cu`` (CUDA C++ for sm_90a; each file notes what
 bounds its kernel). At first use the sources are compiled with ``nvcc`` into one
 shared library under ``build/vo_tpu_torch/`` (named by a hash of the sources and
-flags, so an edit rebuilds) and bound with ``ctypes``.
+flags, so an edit rebuilds) and bound with ``ctypes``. The same library carries the
+tracer's one-thread stage stamp (``csrc/stage_stamp.cu``, wrapped by
+``utils.profiling.write_stamp``), which is no front-end kernel and counts apart.
 
 Each kernel takes every octave of a detection call in ONE launch
 (``extrema_scores_octaves``, ``bin_maps_octaves``); the one-octave wrappers
@@ -104,6 +106,9 @@ def load() -> ctypes.CDLL:
             ptrs, ptrs, longs, longs, longs, ints, ints, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.vo_bin_maps.restype = ctypes.c_int
+        # The tracer's stage stamp (csrc/stage_stamp.cu; wrapper utils.profiling.write_stamp).
+        lib.vo_stage_stamp.argtypes = [ctypes.c_void_p, ctypes.c_void_p, *[ctypes.c_int] * 4, ctypes.c_void_p]
+        lib.vo_stage_stamp.restype = ctypes.c_int
         _lib = lib
     return _lib
 

@@ -17,9 +17,22 @@ the next call overwrites what a call returned. The meshed step
 (``make_fused_loop_step(mesh=)``) is one graph per rank where its collectives
 go over NCCL (sharded detection with its all-gather, hypothesis-sharded RANSAC
 with its all-gather, the landmark insert) and eager where they go over gloo.
+
+Stage stamps. Given ``stamps`` (utils.profiling.StageStamps, which the runner
+makes while the tracer is on), the two fused factories' step writes the
+device's clock at each stage boundary, in this order (``stage_columns``): the
+start; ``detect`` (``_normalize`` and ``detect_and_describe``, once for the
+whole group); per frame ``match`` (``stereo_features_with_matches``, ``track``
+and the gathers) and ``pose`` (triangulation, RANSAC-P3P, chaining, the
+new-landmark selection and the ids); then per frame ``map``
+(``landmarks.insert``; a stamp where there is no map too). A stamp is a node of
+the captured graph and touches none of the step's tensors; without ``stamps``
+the graph holds no stamp node.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import NamedTuple
 
 import torch
@@ -107,6 +120,32 @@ def _normalize(img: torch.Tensor) -> torch.Tensor:
     return img
 
 
+def stage_columns(frames: int) -> tuple:
+    """The stage each stamp of a step over ``frames`` frames ends (module docstring), column by column."""
+    return ("start", "detect") + ("match", "pose") * frames + ("map",) * frames
+
+
+_local = threading.local()  # .stamps: the StageStamps of the step body this thread runs, or None
+
+
+@contextlib.contextmanager
+def _stamping(stamps):
+    """The fused factories' step body writes its stage stamps into ``stamps`` (None: none)."""
+    prev = getattr(_local, "stamps", None)
+    _local.stamps = stamps
+    try:
+        yield
+    finally:
+        _local.stamps = prev
+
+
+def _mark(advance: bool = False) -> None:
+    """A stage stamp, where the running step body stamps (``_stamping``)."""
+    stamps = getattr(_local, "stamps", None)
+    if stamps is not None:
+        stamps.mark(advance)
+
+
 def _step_core(
     state: VOState,
     feats_l: Features,
@@ -121,6 +160,7 @@ def _step_core(
     RANSAC draws from ``state.gen`` unless ``triples`` [H, 3] are given.
     ``pose_fn(px2d, pts3d, mask, gen, triples)`` replaces the single-device
     estimate (the mesh's hypothesis-sharded one: ``_mesh_step_overrides``).
+    Stamps the ends of ``match`` and ``pose`` (module docstring).
     """
     cap = cfg.max_tracks
     stereo, m_st = stereo_features_with_matches(feats_l, feats_r, cfg.matcher, cap)
@@ -134,6 +174,7 @@ def _step_core(
     old_l_px = gather_rows(state.prev.l_xy, tr.old_row, tr.mask)
     old_r_px = gather_rows(state.prev.r_xy, tr.old_row, tr.mask)
     check_finite("track", (cur_l_px, cur_r_px, old_l_px, old_r_px), tr.mask)
+    _mark()  # match
 
     # --- triangulate both frames (VO.m:113-116) ---
     X_prev = triangulate_rectified(old_l_px, old_r_px, calib)
@@ -200,6 +241,7 @@ def _step_core(
         new_lm_r_px=new_r_px,
         new_lm_mask=new_mask,
     )
+    _mark()  # pose
     return new_state, out
 
 
@@ -243,9 +285,11 @@ def vo_step_multi(state: VOState, frames, calib: StereoCalib, cfg: PipelineConfi
 
     Detection is pose-independent, so one batched detect_and_describe covers
     every image; the serial tracking / RANSAC / chaining then runs frame by
-    frame. Returns (state, [FrameOutput x N]).
+    frame. Returns (state, [FrameOutput x N]). Stamps the end of ``detect``
+    (module docstring).
     """
     feats = _detect(torch.stack([_normalize(f) for f in frames]), cfg)
+    _mark()  # detect
     outs = []
     for k in range(len(frames) // 2):
         state, out = _step_core(state, _image_features(feats, 2 * k), _image_features(feats, 2 * k + 1), calib, cfg)
@@ -271,9 +315,11 @@ def vo_step(
     ``DeviceMesh`` from dist.mesh.make_mesh) runs the step distributed: every
     rank of the mesh calls it with the same arguments and ends with the same
     state (``_mesh_step_overrides``); ``pose_fn`` overrides the pose estimate.
+    Stamps the end of ``detect`` (module docstring).
     """
     mesh_pose_fn, data_sharded = _mesh_step_overrides(calib, cfg, mesh)
     feats = _detect(torch.stack([_normalize(left), _normalize(right)]), cfg, mesh if data_sharded else None)
+    _mark()  # detect
     feats_l = _image_features(feats, 0)
     state, out = _step_core(
         state, feats_l, _image_features(feats, 1), calib, cfg, pose_fn=pose_fn if pose_fn is not None else mesh_pose_fn
@@ -283,10 +329,11 @@ def vo_step(
     return state, out
 
 
-def _compiled(fn, calib: StereoCalib, graph, pool, backends=None):
+def _compiled(fn, calib: StereoCalib, graph, pool, name: str, backends=None):
     """``fn(carry, *frames) -> (carry, outputs)`` as a factory's step ``step(carry, frames)``: the eager
     function where ``graphs.wanted`` says so for ``calib``'s device and the ``backends`` of the
-    groups ``fn`` reduces over, else one ``graphs.StaticStep`` per shape of the frames."""
+    groups ``fn`` reduces over, else one ``graphs.StaticStep`` per shape of the frames, counted in
+    ``graphs.PROGRAMS`` under ``name``."""
     if not graphs.wanted(graph, calib.P1.device, backends):
         return lambda carry, frames: fn(carry, *frames)
     pool = pool if pool is not None else graphs.Pool(calib.P1.device)
@@ -296,7 +343,7 @@ def _compiled(fn, calib: StereoCalib, graph, pool, backends=None):
         key = tuple((f.shape, f.dtype) for f in frames)
         s = by_shape.get(key)
         if s is None:
-            s = by_shape[key] = graphs.StaticStep(fn, carry, frames, calib.P1.device, pool)
+            s = by_shape[key] = graphs.StaticStep(fn, carry, frames, calib.P1.device, name, pool)
         return s(carry, frames)
 
     return step
@@ -319,7 +366,7 @@ def make_jitted_step(calib: StereoCalib, cfg: PipelineConfig, precision: str | N
         with matmul_precision(precision):
             return vo_step(state, left, right, calib, cfg)
 
-    step = _compiled(fn, calib, graph, pool)
+    step = _compiled(fn, calib, graph, pool, "frame_step")
     return lambda state, left, right: step(state, (left, right))
 
 
@@ -332,6 +379,7 @@ def make_fused_loop_step(
     with_query_feats: bool = False,
     graph=None,
     pool=None,
+    stamps=None,
 ):
     """ONE step per frame for the frame loop, the landmark insert folded in (reference: the same name).
 
@@ -344,20 +392,23 @@ def make_fused_loop_step(
     where the step's collectives go over NCCL, and steps eagerly where they go
     over gloo (``graph=True`` there raises; utils.graphs.wanted); every rank
     must call the step as often as the others. ``precision``, ``graph`` and
-    ``pool`` as in ``make_jitted_step``.
+    ``pool`` as in ``make_jitted_step``; ``stamps`` (utils.profiling.StageStamps)
+    writes the stage stamps (module docstring; 5 a step).
     """
     precision = cfg.matmul_precision if precision is None else precision
 
     def fn(carry, left, right):
         state, lmap = carry
-        with matmul_precision(precision):
+        with _stamping(stamps), matmul_precision(precision):
+            _mark()  # start
             r = vo_step(state, left, right, calib, cfg, return_feats=with_query_feats, mesh=mesh)
             state, out = r[0], r[1]
             if with_landmarks:
                 lmap = lm_mod.insert(lmap, out.new_lm_l_px, out.new_lm_r_px, out.new_lm_mask, out.pose_c2w, calib, cfg.landmarks)
+            _mark(advance=True)  # map
         return (state, lmap), ((out, r[2]) if with_query_feats else (out,))
 
-    step = _compiled(fn, calib, graph, pool, collective_backends(mesh))
+    step = _compiled(fn, calib, graph, pool, "frame_step", collective_backends(mesh))
 
     def loop_step(state, lmap, left, right):
         (state, lmap), outs = step((state, lmap), (left, right))
@@ -374,28 +425,32 @@ def make_fused_multi_step(
     group: int = 2,
     graph=None,
     pool=None,
+    stamps=None,
 ):
     """``group`` frames per step, detection batched across all of them (reference: the same name).
 
     Returns ``stepN(state, lmap, l0, r0, ..., l{g-1}, r{g-1}) -> (state, lmap,
     out0, ..., out{g-1})``: ``vo_step_multi`` and, with ``with_landmarks``,
     each frame's insert. ``precision``, ``graph`` and ``pool`` as in
-    ``make_jitted_step``.
+    ``make_jitted_step``, ``stamps`` as in ``make_fused_loop_step`` (2 + 3 ×
+    ``group`` a step).
     """
     precision = cfg.matmul_precision if precision is None else precision
 
     def fn(carry, *frames):
         state, lmap = carry
-        with matmul_precision(precision):
+        with _stamping(stamps), matmul_precision(precision):
+            _mark()  # start
             state, outs = vo_step_multi(state, frames, calib, cfg)
-            if with_landmarks:
-                for out in outs:
+            for k, out in enumerate(outs):
+                if with_landmarks:
                     lmap = lm_mod.insert(
                         lmap, out.new_lm_l_px, out.new_lm_r_px, out.new_lm_mask, out.pose_c2w, calib, cfg.landmarks
                     )
+                _mark(advance=k == len(outs) - 1)  # map
         return (state, lmap), tuple(outs)
 
-    step = _compiled(fn, calib, graph, pool)
+    step = _compiled(fn, calib, graph, pool, "group_step")
 
     def stepN(state, lmap, *frames):
         if len(frames) != 2 * group:

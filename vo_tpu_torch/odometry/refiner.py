@@ -56,8 +56,7 @@ from __future__ import annotations
 
 import queue
 import threading
-import time
-from collections import defaultdict, deque
+from collections import deque
 from typing import Optional
 
 import numpy as np
@@ -70,6 +69,7 @@ from ..geom.camera import StereoCalib
 from ..utils import graphs
 from ..utils.device import resolve
 from ..utils.host_copy import HostCopy
+from ..utils.profiling import span
 
 
 class _KeyframeJob:
@@ -201,7 +201,9 @@ class RefinerWorker:
         self._launched = threading.Semaphore(0)
         self._owed = 0
         self._unlaunched = False  # worker: a problem it handed over may not be launched yet
-        self.launch_wait_s = 0.0  # main-thread time blocked in submit on a problem not yet handed over
+        # Main-thread seconds blocked on the worker: in submit on a problem not yet handed over
+        # ("launch_wait"), in the runner's throttle ("throttle"); spans vo_tpu_torch.refiner.<key>.
+        self.main_wait_s: dict = {}
         if use_loop_closure:
             from ..slam.loop_closure import LoopCloser
 
@@ -226,7 +228,7 @@ class RefinerWorker:
         self._error: Optional[BaseException] = None
         self._loops_closed = 0
         self._ba_solves = 0
-        self._phase_s: defaultdict = defaultdict(float)  # worker-phase seconds
+        self._phase_s: dict = {}  # worker-phase seconds; spans vo_tpu_torch.refiner.<phase>
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
         # The warm-up (solver and verification once on the production shapes)
@@ -286,10 +288,9 @@ class RefinerWorker:
         if self._hand_over:
             # The worker processes job k when job k + 2 arrives, so before job k + 3 goes in,
             # job k's solve is launched here: the worker's next collect finds it in flight.
-            t = time.perf_counter()
-            while self._owed > 2:
-                self._launch_next()
-            self.launch_wait_s += time.perf_counter() - t
+            with span("vo_tpu_torch.refiner.launch_wait", total=self.main_wait_s):
+                while self._owed > 2:
+                    self._launch_next()
             self._owed += 1
         self._q.put(job)
 
@@ -672,48 +673,46 @@ class RefinerWorker:
 
     def _process(self, job: _KeyframeJob) -> None:
         self._await_launch()
-        t0 = time.perf_counter()
-        names, copy = job.host
-        if self._stream is not None and copy.event is not None:
-            # Device work below reads the frame loop's tensors: order this
-            # stream after the work that produced them.
-            self._stream.wait_event(copy.event)
-        h = dict(zip(names, copy.numpy()))
-        pose_chain = np.asarray(h["pose"], np.float64)
-        pose = (self._D @ pose_chain).astype(np.float32)
-        if self.wba is not None:  # host-side window assembly needs these
-            l_xy = np.asarray(h["l_xy"], np.float32)
-            r_xy = np.asarray(h["r_xy"], np.float32)
-            mask = np.asarray(h["mask"], bool)
-        else:
-            l_xy = r_xy = mask = None
-        snapshot = pose.copy()
-        with self._lock:
-            self._kf_corrected[job.frame_idx] = pose
-            self._kf_chain[job.frame_idx] = pose
-            self._kf_order.append(job.frame_idx)
-        self._phase_s["copy"] += time.perf_counter() - t0
+        with span("vo_tpu_torch.refiner.copy", total=self._phase_s):
+            names, copy = job.host
+            if self._stream is not None and copy.event is not None:
+                # Device work below reads the frame loop's tensors: order this
+                # stream after the work that produced them.
+                self._stream.wait_event(copy.event)
+            h = dict(zip(names, copy.numpy()))
+            pose_chain = np.asarray(h["pose"], np.float64)
+            pose = (self._D @ pose_chain).astype(np.float32)
+            if self.wba is not None:  # host-side window assembly needs these
+                l_xy = np.asarray(h["l_xy"], np.float32)
+                r_xy = np.asarray(h["r_xy"], np.float32)
+                mask = np.asarray(h["mask"], bool)
+            else:
+                l_xy = r_xy = mask = None
+            snapshot = pose.copy()
+            with self._lock:
+                self._kf_corrected[job.frame_idx] = pose
+                self._kf_chain[job.frame_idx] = pose
+                self._kf_order.append(job.frame_idx)
 
         if self.lclo is not None:
             from ..slam.loop_closure import ArchivedKeyframe
 
-            t0 = time.perf_counter()
-            res = self.lclo.add_keyframe(
-                ArchivedKeyframe(
-                    frame_idx=job.frame_idx,
-                    pose_c2w=pose,
-                    # The closer verifies from the device tensors and
-                    # retrieves by the device-computed global descriptor.
-                    l_px=l_xy,
-                    r_px=r_xy,
-                    l_desc=None,
-                    mask=mask,
-                    global_desc=np.asarray(h["gdesc"], np.float32),
-                    dev=(job.l_xy, job.r_xy, job.l_desc, job.mask),
-                ),
-                query_dev=job.query,
-            )
-            self._phase_s["loop_closure"] += time.perf_counter() - t0
+            with span("vo_tpu_torch.refiner.loop_closure", total=self._phase_s):
+                res = self.lclo.add_keyframe(
+                    ArchivedKeyframe(
+                        frame_idx=job.frame_idx,
+                        pose_c2w=pose,
+                        # The closer verifies from the device tensors and
+                        # retrieves by the device-computed global descriptor.
+                        l_px=l_xy,
+                        r_px=r_xy,
+                        l_desc=None,
+                        mask=mask,
+                        global_desc=np.asarray(h["gdesc"], np.float32),
+                        dev=(job.l_xy, job.r_xy, job.l_desc, job.mask),
+                    ),
+                    query_dev=job.query,
+                )
             if res is not None:
                 self._loops_closed += 1
                 surv = {akf.frame_idx: akf.pose_c2w.copy() for akf in self.lclo.keyframes}
@@ -758,23 +757,21 @@ class RefinerWorker:
             # (its device result has had a full keyframe period to land —
             # reading at dispatch measured ~120 ms of queue wait per solve,
             # ba_runner.dispatch docstring).
-            t0 = time.perf_counter()
-            for kf_idxs, T_new in self.wba.collect():
-                self._ba_solves += 1
-                with self._lock:
-                    for k, fi in enumerate(kf_idxs):
-                        self._kf_corrected[fi] = T_new[k].copy()
-            self._phase_s["ba_collect"] += time.perf_counter() - t0
+            with span("vo_tpu_torch.refiner.ba_collect", total=self._phase_s):
+                for kf_idxs, T_new in self.wba.collect():
+                    self._ba_solves += 1
+                    with self._lock:
+                        for k, fi in enumerate(kf_idxs):
+                            self._kf_corrected[fi] = T_new[k].copy()
 
             # BA inits from the (loop-corrected) chain pose, never from a
             # previous window solve (non-compounding local refinement).
             cur_pose = pose.copy()
-            t0 = time.perf_counter()
-            if "m_a" in h:
-                tids = self.associator.add(int(job.slot), mask, h["m_a"], h["m_b"], np.asarray(h["m_ok"], bool))
-            else:
-                tids = np.asarray(h["ids"], np.int32)
-            self._phase_s["associate"] += time.perf_counter() - t0
+            with span("vo_tpu_torch.refiner.associate", total=self._phase_s):
+                if "m_a" in h:
+                    tids = self.associator.add(int(job.slot), mask, h["m_a"], h["m_b"], np.asarray(h["m_ok"], bool))
+                else:
+                    tids = np.asarray(h["ids"], np.int32)
             self.wba.add_keyframe(
                 Keyframe(
                     frame_idx=job.frame_idx,
@@ -793,15 +790,14 @@ class RefinerWorker:
             # The dispatch is async and the result is collected one keyframe
             # later, so the solve costs the worker only the host-side
             # assemble (~ms), not the ~120 ms device round trip it used to.
-            t0 = time.perf_counter()
-            if self._hand_over:  # the main thread launches it (module docstring)
-                prepared = self.wba.prepare()
-                uploaded = None
-                if prepared is not None and self._stream is not None:
-                    uploaded = torch.cuda.Event()
-                    uploaded.record(self._stream)
-                self._unlaunched = True
-                self._prepared.put((prepared, uploaded))
-            else:
-                self.wba.dispatch()
-            self._phase_s["ba_dispatch"] += time.perf_counter() - t0
+            with span("vo_tpu_torch.refiner.ba_dispatch", total=self._phase_s):
+                if self._hand_over:  # the main thread launches it (module docstring)
+                    prepared = self.wba.prepare()
+                    uploaded = None
+                    if prepared is not None and self._stream is not None:
+                        uploaded = torch.cuda.Event()
+                        uploaded.record(self._stream)
+                    self._unlaunched = True
+                    self._prepared.put((prepared, uploaded))
+                else:
+                    self.wba.dispatch()

@@ -60,9 +60,20 @@ share a card (gloo) those two step and solve eagerly and the programs without
 a collective (association, round, descriptor) are still graphs. Only rank 0
 writes files (checkpoints, metrics, figures); ``resume`` loads the one
 checkpoint on every rank.
+
+Tracing (utils.profiling). A call checks once, at its entry, whether the
+tracer is on (``profiling.tracing()``, or ``torch.profiler`` recording). Off,
+the call's only profiler range is ``FRAME_LOOP`` and its graphs hold no stamp
+node. On, it opens the spans named below (``CAPTURE``, ``FRAME_LOOP`` and in
+it, per step, ``FETCH``, ``STEP`` and on the non-deferred path ``HOST_READ``
+around ``HOST_COPY``, then ``READBACK``), each carrying its frame index, and
+its steps write stage stamps on the device (odometry.pipeline) into a ring
+read once after the loop: ``RunResult.trace``. ``RunResult.capture_s`` and
+``readback_s`` are host clocks of every call.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -82,15 +93,23 @@ from ..utils import graphs
 from ..utils.device import resolve
 from ..utils.host_copy import HostCopy, upload
 from ..utils.precision import matmul_precision
-from ..utils.profiling import MetricsLog, pretty_frame
+from ..utils.profiling import MetricsLog, StageStamps, Trace, call_tracing, pretty_frame, span
 from . import landmarks as lm_mod
 from . import checkpoint as ckpt_mod
 from .correction import reanchor_trajectory, rebuild_rel_poses
-from .pipeline import init_state, make_fused_loop_step, make_fused_multi_step
+from .pipeline import init_state, make_fused_loop_step, make_fused_multi_step, stage_columns
 
 
 KITTI_DT = 0.10374  # mean frame period of kitti/00/times.txt (~9.6 Hz)
-FRAME_LOOP = "vo_tpu_torch.frame_loop"  # torch.profiler span of run_sequence's timed loop
+# The tracer's spans of a run_sequence call (utils.profiling; module docstring). FRAME_LOOP is a
+# torch.profiler range in every call; the others exist only while the tracer is on.
+CAPTURE = "vo_tpu_torch.capture"  # entry to the loop: factories, the steps' warm-up and capture, the refiner
+FRAME_LOOP = "vo_tpu_torch.frame_loop"  # the timed loop
+FETCH = "vo_tpu_torch.fetch"  # per step: seq.frame and to_device (a live camera's wait)
+STEP = "vo_tpu_torch.step"  # per step: the copy-in and the graph's launch
+HOST_READ = "vo_tpu_torch.host_read"  # per frame, non-deferred path: the host copy and host_frame
+HOST_COPY = "vo_tpu_torch.host_copy"  # inside HOST_READ: the wait for the frame's HostCopy
+READBACK = "vo_tpu_torch.readback"  # the final synchronise, the reads, the refiner's close, re-anchoring
 
 
 @dataclasses.dataclass
@@ -104,6 +123,9 @@ class RunResult:
     frames_per_sec: float
     per_frame_ms: float
     refine_stats: dict = dataclasses.field(default_factory=dict)
+    capture_s: float = 0.0  # host seconds from the call's entry to its frame loop (CAPTURE)
+    readback_s: float = 0.0  # host seconds from the loop's end to the return (READBACK)
+    trace: Optional[Trace] = None  # the call's spans and stage stamps while the tracer was on
 
 
 def to_device(img, device) -> torch.Tensor:
@@ -154,7 +176,6 @@ class _Keyframes:
         self.refiner = refiner
         self.cfg = cfg
         self.every = cfg.ba.keyframe_every
-        self.wait_s = 0.0  # main-thread time blocked on the refiner
         self.use_ba = use_ba
         if use_ba:
             # Descriptor ring of the keyframes in the BA window: each new
@@ -199,9 +220,8 @@ class _Keyframes:
 
     def throttle(self) -> None:
         # Bounded lag: block only if the worker is > 2 keyframes behind.
-        t = time.perf_counter()
-        self.refiner.throttle(max_lag=2)
-        self.wait_s += time.perf_counter() - t
+        with span("vo_tpu_torch.refiner.throttle", total=self.refiner.main_wait_s):
+            self.refiner.throttle(max_lag=2)
 
     @matmul_precision("float32")
     def _associate(self, desc: torch.Tensor, mask: torch.Tensor):
@@ -342,7 +362,11 @@ def run_sequence(
     captured unless it issues a collective over gloo (module docstring; with
     ``graph=True`` such a program raises).
     """
-    with matmul_precision(cfg.matmul_precision):
+    t_call = time.perf_counter()
+    # ``phase`` holds the open one of the spans CAPTURE and READBACK.
+    with matmul_precision(cfg.matmul_precision), call_tracing() as tracer, contextlib.ExitStack() as phase:
+        first_span = len(tracer.rows) if tracer is not None else 0
+        phase.enter_context(span(CAPTURE))
         device = resolve(device)
         if mesh is not None and not isinstance(mesh, DeviceMesh):
             raise TypeError(f"mesh must be a torch.distributed DeviceMesh (dist.mesh.make_mesh), not {type(mesh).__name__}")
@@ -364,14 +388,19 @@ def run_sequence(
         # A mesh steps frame by frame too: its data axis shards ONE stereo pair.
         group = cfg.fused_group if deferred and not refined and mesh is None else 1
 
+        # With the tracer on, the steps write stage stamps into a ring of a row per step (pipeline).
+        stamps = StageStamps(n, len(stage_columns(group)), device) if tracer is not None else None
         # One graph memory pool for both steps: the groups replay first, the single-frame tail after.
         captured = graphs.wanted(graph, device, collective_backends(mesh))
         pool = graphs.Pool(device) if captured else None
         step1 = make_fused_loop_step(
-            calib, cfg, with_landmarks=insert_landmarks, mesh=mesh, with_query_feats=use_loop_closure, graph=graph, pool=pool
+            calib, cfg, with_landmarks=insert_landmarks, mesh=mesh, with_query_feats=use_loop_closure, graph=graph,
+            pool=pool, stamps=stamps,
         )
         stepN = (
-            make_fused_multi_step(calib, cfg, with_landmarks=insert_landmarks, group=group, graph=graph, pool=pool)
+            make_fused_multi_step(
+                calib, cfg, with_landmarks=insert_landmarks, group=group, graph=graph, pool=pool, stamps=stamps
+            )
             if group > 1
             else None
         )
@@ -466,7 +495,8 @@ def run_sequence(
             """The non-deferred path's per-frame work: one host copy of the frame's scalars, then
             whoever asked for them."""
             fields = _HIST_FIELDS + (("mean_reproj_err",) if mlog is not None else ())
-            h = dict(zip(fields, HostCopy(*(getattr(out, f) for f in fields)).numpy()))
+            with span(HOST_COPY, frame=i):
+                h = dict(zip(fields, HostCopy(*(getattr(out, f) for f in fields)).numpy()))
             n_tr, n_in, ok = int(h["n_tracks"]), int(h["n_inliers"]), bool(h["pose_ok"])
             if i > 0:  # all_poses starts at frame 2 (VO.m:133)
                 hist.extend_host(
@@ -497,30 +527,40 @@ def run_sequence(
                         refiner_state=refiner_state,
                     )
 
+        if stamps is not None:
+            stamps.start()  # the ring emptied, and the first clock anchor
+        phase.close()
         t0 = time.perf_counter()
         i = start_frame
         # The span lets a profile read the frame loop apart from the warm-up and capture before it.
-        with torch.profiler.record_function(FRAME_LOOP):
+        with span(FRAME_LOOP) if tracer is not None else torch.profiler.record_function(FRAME_LOOP):
             while i < n:
                 t_frame = time.perf_counter()
                 g = group if i + group <= n else 1  # single-frame tail
-                host_frames = [seq.frame(i + k) for k in range(g)]
-                dev_frames = [to_device(im, device) for lr in host_frames for im in lr]
+                with span(FETCH, frame=i):
+                    host_frames = [seq.frame(i + k) for k in range(g)]
+                    dev_frames = [to_device(im, device) for lr in host_frames for im in lr]
                 key = kfs is not None and kfs.is_keyframe(i)
                 if key:
                     kfs.throttle()
-                state, lmap, outs, query = run_group(state, lmap, dev_frames)
+                if stamps is not None:
+                    stamps.replays.append((tuple(range(i, i + g)), stage_columns(g)))
+                with span(STEP, frame=i):
+                    state, lmap, outs, query = run_group(state, lmap, dev_frames)
                 if key:
                     kfs.submit(i, state, outs[0], query)
                 for k, out in enumerate(outs):
                     j = i + k
                     if not deferred:
-                        host_frame(j, out, state, t_frame)
+                        with span(HOST_READ, frame=j):
+                            host_frame(j, out, state, t_frame)
                     elif j > 0:  # all_poses starts at frame 2 (VO.m:133)
                         hist.append(out)
                     if viz_every and j > 0 and j % viz_every == 0:
                         live_viz(j, out, host_frames[k][0])
                 i += g
+        t_loop = time.perf_counter()
+        phase.enter_context(span(READBACK))
         _sync(device)
         wall = time.perf_counter() - t0
         if mlog is not None:
@@ -532,7 +572,7 @@ def run_sequence(
         if refiner is not None:
             refiner.close()
             refine_stats = dict(refiner.stats)
-            refine_stats["main_wait_s"] = round(kfs.wait_s + refiner.launch_wait_s, 3)
+            refine_stats["main_wait_s"] = round(sum(refiner.main_wait_s.values()), 3)
             kf_idx, kf_poses = refiner.corrected_keyframes()
             # History row for frame i is i-1 (all_poses convention, VO.m:133).
             kf_rows = kf_idx - 1
@@ -547,7 +587,7 @@ def run_sequence(
         else:
             lms = np.zeros((0, 3), np.float32)
         n_run = n - start_frame
-        return RunResult(
+        result = RunResult(
             poses=poses,
             rel_poses=rels,
             n_inliers=rows["n_inliers"],
@@ -558,6 +598,13 @@ def run_sequence(
             per_frame_ms=1000.0 * wall / max(n_run, 1),
             refine_stats=refine_stats,
         )
+        if stamps is not None:
+            stamps.read()
+        phase.close()
+        result.capture_s, result.readback_s = t0 - t_call, time.perf_counter() - t_loop
+        if tracer is not None:
+            result.trace = tracer.collect(first_span, stamps)
+        return result
 
 
 def save_result(result: RunResult, out_dir: str) -> None:

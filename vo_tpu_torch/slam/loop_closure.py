@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import time
 from typing import Optional
 
 import numpy as np
@@ -48,6 +47,7 @@ from ..utils import graphs
 from ..utils.device import resolve
 from ..utils.host_copy import HostCopy, upload
 from ..utils.precision import matmul_precision
+from ..utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -113,8 +113,8 @@ class LoopCloser:
         # In-flight verification round: (verified_frame_idx, [cand frame_idx],
         # HostCopy of the outputs). Dispatched at keyframe t, collected at t+1.
         self._pending = None
-        # Wall-clock per phase (candidates / dispatch / collect / solve) —
-        # exported through refiner stats as worker_lc_<phase>_s.
+        # Wall-clock per phase (candidates / dispatch / collect / solve), spans
+        # vo_tpu_torch.refiner.lc.<phase>, exported through refiner stats as worker_lc_<phase>_s.
         self.phase_s: dict[str, float] = {}
         self._path_m = 0.0  # cumulative keyframe-chain trajectory length
         self._last_t: np.ndarray | None = None
@@ -302,29 +302,22 @@ class LoopCloser:
         if self._cooldown_left > 0:
             self._cooldown_left -= 1
             return result
-        t0 = time.perf_counter()
-        cand_idx = self._candidates(kf.pose_c2w, kf.global_desc)
-        self._tick("candidates", t0)
+        with span("vo_tpu_torch.refiner.lc.candidates", total=self.phase_s):
+            cand_idx = self._candidates(kf.pose_c2w, kf.global_desc)
         if not cand_idx:
             return result
         # Pace verification: a revisit keeps proposing the same neighborhood
         # for tens of keyframes; one round per verify_cooldown keyframes
         # bounds the device dispatches without losing recall.
         self._cooldown_left = max(self._cooldown_left, self.cfg.verify_cooldown)
-        t0 = time.perf_counter()
-        outs = self._dispatch_verify(
-            [self.keyframes[k] for k in cand_idx], kf, query_dev=query_dev
-        )
-        self._tick("dispatch", t0)
+        with span("vo_tpu_torch.refiner.lc.dispatch", total=self.phase_s):
+            outs = self._dispatch_verify([self.keyframes[k] for k in cand_idx], kf, query_dev=query_dev)
         self._pending = (
             kf.frame_idx,
             [self.keyframes[k].frame_idx for k in cand_idx],
             outs,
         )
         return result
-
-    def _tick(self, phase: str, t0: float) -> None:
-        self.phase_s[phase] = self.phase_s.get(phase, 0.0) + time.perf_counter() - t0
 
     def flush(self) -> Optional[dict]:
         """Collect the final in-flight verification round (end of run)."""
@@ -343,9 +336,8 @@ class LoopCloser:
             return None  # verified keyframe was decimated away
         cur_k = by_fi[ver_fi]
         kf = self.keyframes[cur_k]
-        t0 = time.perf_counter()
-        Zs = self._collect_verify(outs, len(cand_fis), self.cfg.min_inliers)
-        self._tick("collect", t0)
+        with span("vo_tpu_torch.refiner.lc.collect", total=self.phase_s):
+            Zs = self._collect_verify(outs, len(cand_fis), self.cfg.min_inliers)
         for cf, Z in zip(cand_fis, Zs):
             if Z is None or cf not in by_fi:
                 continue
@@ -405,9 +397,8 @@ class LoopCloser:
             self.loop_edges.append((k, cur_k, Z))
             if len(self.loop_edges) > self.cfg.max_loop_edges:
                 self.loop_edges.pop(0)
-            t0 = time.perf_counter()
-            corrected = self._solve_graph()
-            self._tick("solve", t0)
+            with span("vo_tpu_torch.refiner.lc.solve", total=self.phase_s):
+                corrected = self._solve_graph()
             if corrected is not None:
                 self._cooldown_left = self.cfg.cooldown
                 # Path bookkeeping tracks the CORRECTED chain: refresh the

@@ -34,8 +34,10 @@ step. This module owns the mechanics:
   in ``dist.mesh.CAPTURED``; the graph keeps how many it captured of each and
   adds them to ``kernels.LAUNCHES`` and ``dist.mesh.COLLECTIVES`` on each
   replay, so a graphed run counts what the eager run counts.
-- ``PROGRAMS``: captures, replays and capture seconds of every ``StaticCall``,
-  by program name (``reset_programs`` sets them to 0).
+- ``PROGRAMS``: captures, replays and capture seconds of every graph, by
+  program name: each ``StaticCall``'s and each ``StaticStep``'s (the runner's
+  ``group_step`` and ``frame_step``, named by odometry.pipeline's factories);
+  ``reset_programs`` sets them to 0.
 
 ``wanted`` decides, per program: ``graph=None`` captures on a CUDA device and
 runs eagerly on the CPU, ``graph=False`` is the eager program, ``graph=True``
@@ -60,7 +62,7 @@ from .debug import nan_checks_enabled
 
 WARMUP_RUNS = 1  # eager runs on the side stream before capture
 
-# program name -> {"captures": n, "replays": n, "capture_s": seconds} of its StaticCalls
+# program name -> {"captures": n, "replays": n, "capture_s": seconds} of its StaticCalls and StaticSteps
 PROGRAMS: defaultdict = defaultdict(lambda: {"captures": 0, "replays": 0, "capture_s": 0.0})
 
 
@@ -209,10 +211,12 @@ class StaticStep:
     so the run's state lives there. A call copies its carry and inputs in
     (nothing for a carry that already is the static one), replays, and
     returns ``(static carry, static outputs)``: the next call overwrites both,
-    so a caller keeps copies of what it needs longer.
+    so a caller keeps copies of what it needs longer. Counted in ``PROGRAMS``
+    under ``name``, as a ``StaticCall``.
     """
 
-    def __init__(self, fn, carry, inputs, device, pool: Pool | None = None):
+    def __init__(self, fn, carry, inputs, device, name: str, pool: Pool | None = None):
+        self.name = name
         self.carry = static_copy(carry)
         self.inputs = [x.clone() for x in inputs]
 
@@ -221,13 +225,18 @@ class StaticStep:
             copy_into(self.carry, new_carry)
             return outputs
 
+        t = time.perf_counter()
         self.captured = capture(body, device, pool, generators_of(self.carry))
+        self.capture_s = time.perf_counter() - t  # warm-up run, capture and instantiation
+        PROGRAMS[name]["captures"] += 1
+        PROGRAMS[name]["capture_s"] += self.capture_s
 
     def __call__(self, carry, inputs):
         refuse_nan_debug()
         copy_into(self.carry, carry)
         for dst, src in zip(self.inputs, inputs):
             dst.copy_(src)
+        PROGRAMS[self.name]["replays"] += 1
         return self.carry, self.captured.replay()
 
 
