@@ -10,13 +10,15 @@ program's ``PipelineConfig``) under a traffic mix
 Set-up: the program's modules, the world (rendered into ``perfbench/.cache`` by a cell's first
 run, memory-mapped by the others) staged on the card, and one short warm job with the window's
 options, which builds the kernels and loads every module the window's jobs use. The window: a
-closed loop runs jobs back to back until ``--seconds`` have passed (the last job is the last
-that started before then); an open loop runs one job whose camera releases frame ``i`` at
-``t0 + i * period``. A job is one ``vo_tpu_torch.odometry.runner.run_sequence`` call over one
-log, timed on the host from the call to its return and a synchronise; its noisy feed is made
-and synchronised before its clock starts. With ``--trace 1`` the window's first job runs under
-``torch.profiler``. After the window: the card's peak memory, the import check, the metrics,
-then the check against the plain reference (perfbench/check.py), and the line.
+closed loop runs its traffic's fixed set of jobs, indices ``0 .. jobs-1``, back to back, however
+fast the program is, so every program meets the same logs, noise and RANSAC streams;
+``--seconds`` only bounds it (no job starts once ``2 * --seconds`` have passed); an open loop
+runs one job whose camera releases frame ``i`` at ``t0 + i * period``. A job is one
+``vo_tpu_torch.odometry.runner.run_sequence`` call over one log, timed on the host from the call
+to its return and a synchronise; its noisy feed is made and synchronised before its clock
+starts. With ``--trace 1`` the window is job 0 alone, under ``torch.profiler`` (reducing its
+trace outlasts the window). After the window: the card's peak memory, the import check, the
+metrics, then the check against the plain reference (perfbench/check.py), and the line.
 """
 from __future__ import annotations
 
@@ -243,13 +245,13 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float, 
           f"{t_warm - t_world:.3f} s to load and stage the world, {run.setup_s - (t_warm - t_start):.3f} s the warm job",
           file=sys.stderr, flush=True)
 
+    n = t.frames_in(seconds) if live else n_log
     w0 = time.perf_counter()
-    job = 0
-    while True:
-        if job > 0 and (live or time.perf_counter() - w0 >= seconds):
+    for job in range(1 if live or trace else t.jobs):
+        if job > 0 and time.perf_counter() - w0 >= 2 * seconds:
+            print(f"# window cut: jobs {job}..{t.jobs - 1} not started, {2 * seconds:g} s have passed", file=sys.stderr, flush=True)
             break
-        n = t.frames_in(seconds) if live else n_log
-        if trace and job == 0:
+        if trace:
             prof = trace_mod.start(device)
             run.jobs.append(one_job(job, n))
             t_red = time.perf_counter()
@@ -259,7 +261,6 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float, 
                   file=sys.stderr, flush=True)
         else:
             run.jobs.append(one_job(job, n))
-        job += 1
     return run
 
 
@@ -312,9 +313,11 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, t_start: float, 
         device_json.update(busy_s=run.trace.busy_s, window_s=run.trace.window_s)
     metrics = metrics_of(cell, run, bench, trace)
     attempted = sum(j.n_frames for j in run.jobs)
-    failed = sum(int(np.sum(~np.asarray(j.result.pose_ok, bool))) for j in run.jobs)
+    fails = {j.index: int(np.sum(~np.asarray(j.result.pose_ok, bool))) for j in run.jobs}
+    failed = sum(fails.values())
     lat = [j for j in run.jobs if j.release_s is not None]
     print(f"# card: {power_limit() if dev.type == 'cuda' else 'cpu'}; {len(run.jobs)} job(s), {attempted} frames, "
+          f"frames with pose_ok false by job {fails}, "
           f"job walls {[round(j.wall_s, 4) for j in run.jobs]} s, frame loops "
           f"{[round(j.result.per_frame_ms * j.n_frames / 1000, 4) for j in run.jobs]} s, setup {run.setup_s:.4f} s"
           + (f"; {int(np.isfinite(lat[0].done_s).sum())} latency samples, generator late by at most "

@@ -26,3 +26,5 @@ SMALL = dict(
     traffic=dict(poses=6, landmarks_per_pose=60),
     check=dict(samples=8),
 )
+# SMALL for a closed-loop cell: a window of two jobs (the traffic file's 8 would take the CPU long).
+SMALL_CLOSED = dict(SMALL, traffic=dict(SMALL["traffic"], jobs=2))

@@ -9,7 +9,7 @@ import pytest
 
 from perfbench import harness
 
-from .conftest import SMALL
+from .conftest import SMALL, SMALL_CLOSED
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 BENCH = json.load(open(os.path.join(ROOT, "BENCHMARK.json")))
@@ -48,7 +48,7 @@ def test_exits_without_a_card_and_prints_nothing():
 
 @pytest.mark.parametrize("cell,trace", [("vo.offline", False), ("vo.offline", True), ("vo.live", False)])
 def test_one_line_has_the_contracts_keys(cell, trace):
-    ov = dict(SMALL, traffic=dict(SMALL["traffic"], period_s=0.3) if cell == "vo.live" else SMALL["traffic"])
+    ov = dict(SMALL, traffic=dict(SMALL["traffic"], period_s=0.3)) if cell == "vo.live" else SMALL_CLOSED
     code, out = harness.run_cell(cell, 2**33 + 5, 1.5, trace, time.perf_counter(), device="cpu", overrides=ov, workers=2)
     assert code == 0 and out["correct"] is True
     want = ["correct", "attempted", "failed", "metrics", "device"] + (["breakdown"] if trace else []) + ["checks"]

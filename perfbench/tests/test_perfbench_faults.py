@@ -16,11 +16,11 @@ import torch
 
 from perfbench import harness
 
-from .conftest import SMALL
+from .conftest import SMALL_CLOSED
 
 
 def _run(cell="vo.offline"):
-    code, out = harness.run_cell(cell, 2**32 + 11, 1.0, False, time.perf_counter(), device="cpu", overrides=SMALL, workers=2)
+    code, out = harness.run_cell(cell, 2**32 + 11, 1.0, False, time.perf_counter(), device="cpu", overrides=SMALL_CLOSED, workers=2)
     assert code == 0
     print({k: v["value"] for k, v in out["checks"].items()})
     return out
