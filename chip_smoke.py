@@ -34,7 +34,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      events are reported too: where the host needs longer to enqueue a launch
      than the card to run it, that reading is the host's. Each kernel's bound
      is the larger of its bytes (inputs read once, outputs written once) over
-     3.35 TB/s and its float operations over 67 TFLOP/s;
+     3.35 TB/s and its float operations over 67 TFLOP/s. Then K3 (pose_refine,
+     RANSAC-P3P's consensus refinement) against its plain version at the main
+     path's shapes (cfg.max_tracks correspondences, the winner of
+     cfg.ransac.n_hypotheses hypotheses): ok and n_inliers equal, the pose
+     within 3e-5 m and 1.5e-6 rad, two launches bit-equal and counted; its time
+     (the clear before each launch as above, median of 25) beside the plain
+     version's, eager and as a replayed CUDA graph, and beside the latency floor
+     that bounds it: a one-thread launch (the tracer's stage stamp) timed the
+     same way;
   4. the plain-VO main path, odometry.runner.run_sequence, over the 30-frame
      synthetic KITTI-00 feed at the default PipelineConfig: one warm run, then
      a timed run with the kernels' launch counters reset just before it. Fails
@@ -201,7 +209,9 @@ each), ``ms`` the one-launch detection call of 4 images with cold inputs, ``octa
 the plain version over the four octaves, ``bound_ms`` / ``bound_by`` /
 ``share_of_bound`` (bound over ``ms``), ``launches_per_detect_call`` counted
 over one detect_and_describe, and ``library_ms`` null: no single PyTorch call
-computes either function. The last line is {"ok": true, "device": {...}}.
+computes either function; K3's row has its own fields (``ms``, ``back_to_back_ms``,
+``plain_ms``, ``plain_graph_ms``, ``floor_ms``, the bounds, ``launches``). The last line
+is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -239,7 +249,8 @@ from vo_tpu_torch.odometry import checkpoint, runner
 from vo_tpu_torch.odometry.refiner import global_desc
 from vo_tpu_torch.pose import ransac
 from vo_tpu_torch.slam.loop_closure import ArchivedKeyframe, LoopCloser
-from vo_tpu_torch.utils import debug, graphs
+from vo_tpu_torch.utils import debug, graphs, profiling
+from vo_tpu_torch.utils.precision import matmul_precision
 
 N_FRAMES = 30
 N_LANDMARKS = 6000
@@ -254,6 +265,10 @@ FP32_FLOP_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores, published
 # fix-ups), bin coordinate and the two weights 8, accumulation into the pooled sums 4.
 K1_FLOP_PER_OUTPUT = 58
 K2_FLOP_PER_PIXEL = 40
+# K3, per point: a projection and gate about 20, and per iteration the gate, Huber weight, Jacobian and
+# its 27 products into H and g about 150 (counted from csrc/pose_refine.cu).
+K3_FLOP_PER_POINT, K3_FLOP_PER_POINT_ITER = 60, 150
+K3_T_TOL_M, K3_R_TOL_RAD = 3e-5, 1.5e-6  # tests/test_torch_pose_refine.py
 ATE_MAX_M = 0.05
 OUT_FRAMES = 100  # phase 5: GT poses 0..99 out, 98..0 back
 PLAIN_ATE_MAX_M = 0.15
@@ -297,6 +312,7 @@ KERNELS = {
     ),
     "bin_maps": dict(source="vo_tpu_torch/csrc/bin_maps.cu", replaces="vo_tpu/frontend/pallas_kernels.py:213"),
 }
+K3 = "pose_refine"  # csrc/pose_refine.cu, one launch per frame a step processes; replaces no TPU kernel
 
 
 def median_ms(fn, reps: int = REPS) -> float:
@@ -466,6 +482,71 @@ def check_kernels(feed: runner.StagedSequence, cfg: PipelineConfig) -> dict:
                     f"{name}: {kernels.LAUNCHES[name]} launches in one detection call on {batch.shape[0]} images, expected 1"
                 )
     return stats
+
+
+def pose_gaps(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """(translation m, rotation rad) of the relative pose between two [4, 4] poses, in float64."""
+    d = np.linalg.inv(a.double().cpu().numpy()) @ b.double().cpu().numpy()
+    w = 0.5 * np.array([d[2, 1] - d[1, 2], d[0, 2] - d[2, 0], d[1, 0] - d[0, 1]])
+    return float(np.linalg.norm(d[:3, 3])), float(np.arcsin(min(1.0, np.linalg.norm(w))))
+
+
+def check_pose_refine(cfg: PipelineConfig, device) -> dict:
+    """Phase 3, K3: the consensus refinement against its plain version at the main path's shapes, then
+    its times beside the plain version's and the latency floor."""
+    px, X, mask, calib, _ = ransac_problem(cfg, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    triples = ransac._sample_triples(gen, mask, cfg.ransac.n_hypotheses)
+    R, t, _, any_valid = ransac.best_hypothesis(px, X, mask, calib, cfg.ransac, triples)
+    args = (R, t, any_valid, px, X, mask, calib, cfg.ransac)
+    plain = matmul_precision("float32")(ransac._finalize_plain)
+    n0 = kernels.LAUNCHES[K3]
+    got, again, want = ransac.finalize_pose(*args), ransac.finalize_pose(*args), plain(*args)
+    torch.cuda.synchronize()
+    if kernels.LAUNCHES[K3] != n0 + 2:
+        raise AssertionError(f"{K3}: {kernels.LAUNCHES[K3] - n0} launches counted for 2 calls")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{K3}: two launches on the same input differ")
+    dt, dr = pose_gaps(want.pose_c2w, got.pose_c2w)
+    n_in, n_in_plain = int(got.n_inliers), int(want.n_inliers)
+    if bool(got.ok) != bool(want.ok) or n_in != n_in_plain or not (dt <= K3_T_TOL_M and dr <= K3_R_TOL_RAD):
+        raise AssertionError(f"{K3} against its plain version: ok {bool(got.ok)} / {bool(want.ok)}, n_inliers {n_in} / "
+                             f"{n_in_plain}, pose gap {dt:.3e} m {dr:.3e} rad")
+    st = dict(n=int(px.shape[0]), iters=cfg.ransac.refine_iters, n_inliers=n_in, pose_gap_m=dt, pose_gap_rad=dr,
+              inliers_differ=int((got.inliers != want.inliers).sum()),
+              mean_err_gap=abs(float(got.mean_err) - float(want.mean_err)))
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=device)
+    st["ms"] = cold_ms(lambda: ransac.finalize_pose(*args), flush)
+    st["back_to_back_ms"] = back_to_back_ms(lambda: ransac.finalize_pose(*args))
+    st["plain_ms"] = median_ms(lambda: plain(*args))
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        plain(*args)  # warm-up before the capture, as utils.graphs does
+    torch.cuda.current_stream(device).wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        plain(*args)
+    st["plain_graph_ms"] = cold_ms(g.replay, flush)
+    stamp_buf = torch.zeros((1, 1), dtype=torch.int64, device=device)
+    stamp_row = torch.zeros(1, dtype=torch.int64, device=device)
+    st["floor_ms"] = cold_ms(lambda: profiling.write_stamp(stamp_buf, stamp_row, 0), flush)
+    del flush, g
+    n = st["n"]
+    # in: pixels, points, mask, the winner's pose and any_valid; out: the pose, inliers, n_inliers, ok, mean_err
+    n_bytes = n * (4 * 5 + 1) + 4 * 12 + 1 + 4 * 16 + n + 8 + 1 + 4
+    st.update(bound(n_bytes, n * (K3_FLOP_PER_POINT + K3_FLOP_PER_POINT_ITER * st["iters"])))
+    st["floor_share"] = st["floor_ms"] / st["ms"]
+    print(
+        f"  {K3} ({n} points, {st['iters']} iterations): against its plain version ok {bool(got.ok)}, n_inliers {n_in} "
+        f"equal, {st['inliers_differ']} inliers differ, pose gap {dt:.3e} m {dr:.3e} rad, mean_err gap "
+        f"{st['mean_err_gap']:.3e} px; two launches bit-equal; {st['ms']:.4f} ms a launch ({st['back_to_back_ms']:.4f} "
+        f"ms back to back), plain {st['plain_ms']:.4f} ms eager and {st['plain_graph_ms']:.4f} ms as a replayed graph; "
+        f"floor (a one-thread launch) {st['floor_ms']:.4f} ms, share {st['floor_share']:.3f}; bound by "
+        f"{st['bound_by']} {st['bound_ms']:.6f} ms ({n_bytes} bytes, {st['flop'] / 1e6:.2f} Mflop)"
+    )
+    return st
 
 
 class OutAndBackFeed:
@@ -723,7 +804,7 @@ def host_paths(feed, cfg: PipelineConfig, device, grouped: runner.RunResult, tmp
     # One detection call per group replayed, one in the eager warm-up run that precedes the capture, and one in
     # the replay of the runner's warm-up call.
     calls = n_dev // cfg.fused_group + 2
-    if log.hand_written != {k: calls for k in KERNELS} or not log.device_launches or not np.isfinite(checked.poses).all():
+    if log.hand_written != {**{k: calls for k in KERNELS}, K3: calls * cfg.fused_group} or not log.device_launches or not np.isfinite(checked.poses).all():
         raise AssertionError(f"compile_logging counted {log.hand_written} and {log.device_launches} launches in {n_dev} frames")
     if not refused:
         raise AssertionError("a graphed run under nan_debug did not raise the ValueError that names graph=False")
@@ -751,7 +832,7 @@ def exact_sift(feed, cfg: PipelineConfig, device, gt, fast_fps: float, launches_
     one = dict(n_orientations=1)
     exact1 = dataclasses.replace(cfg.sift, fast_descriptor=False, **one)
     fe = counted(launches_by_path, "exact_detect_call", lambda: detect_and_describe(imgs, exact1))
-    if launches_by_path["exact_detect_call"] != {"extrema_scores": 1, "bin_maps": 0}:
+    if launches_by_path["exact_detect_call"] != {"extrema_scores": 1, "bin_maps": 0, K3: 0}:
         raise AssertionError(f"exact detection call launched {launches_by_path['exact_detect_call']}, expected K1 once, K2 never")
     fa = detect_and_describe(imgs, dataclasses.replace(cfg.sift, **one))
     if not torch.equal(fa.mask, fe.mask):
@@ -1506,8 +1587,9 @@ def graphed_against_eager(feed, feed5, cfg: PipelineConfig, device, plain: runne
     capture_single_s = time.perf_counter() - t_cap
     pools_bytes = graphs.pools_bytes()
     r = counted(launches_by_path, "one_replay", lambda: stepN(r[0], r[1], *frames))
-    if launches_by_path["one_replay"] != {k: 1 for k in KERNELS}:
-        raise AssertionError(f"one replay of the group step accounted {launches_by_path['one_replay']}, expected one launch of each kernel")
+    if launches_by_path["one_replay"] != {**{k: 1 for k in KERNELS}, K3: cfg.fused_group}:
+        raise AssertionError(f"one replay of the group step accounted {launches_by_path['one_replay']}, expected one launch "
+                             f"of K1 and K2 and one of K3 a frame")
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1517,9 +1599,10 @@ def graphed_against_eager(feed, feed5, cfg: PipelineConfig, device, plain: runne
     trace = os.path.join(tmp, "one_replay.json")
     prof.export_chrome_trace(trace)
     by = launched_by(trace)
-    hand = {name: sorted(v) for name, v in by.items() if any(k in name for k in ("extrema_scores_kernel", "bin_maps_kernel"))}
-    if len(hand) != 2 or any(v != ["cudaGraphLaunch"] for v in hand.values()):
-        raise AssertionError(f"K1 and K2 were not launched by cudaGraphLaunch in a replay: {hand}")
+    hand = {name: sorted(v) for name, v in by.items()
+            if any(k in name for k in ("extrema_scores_kernel", "bin_maps_kernel", "pose_refine_kernel"))}
+    if len(hand) != 3 or any(v != ["cudaGraphLaunch"] for v in hand.values()):
+        raise AssertionError(f"K1, K2 and K3 were not launched by cudaGraphLaunch in a replay: {hand}")
     solver = sorted({n[:80] for n in by if any(k in n.lower() for k in ("getrf", "getrs", "magma", "trsm", "cusolver"))})
     n_kernels = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
     print(
@@ -1532,7 +1615,7 @@ def graphed_against_eager(feed, feed5, cfg: PipelineConfig, device, plain: runne
         f"{plain.per_frame_ms:.3f} and {refined.per_frame_ms:.3f}"
     )
     print(
-        f"     one replay of the group step: {n_kernels} device events, K1 and K2 launched by {hand}, the "
+        f"     one replay of the group step: {n_kernels} device events, K1, K2 and K3 launched by {hand}, the "
         f"replay accounted {launches_by_path['one_replay']}; the 6x6 solve's kernels {solver}; first call (warm-up "
         f"+ capture + instantiate + replay) {capture_group_s:.3f} s for the group step, {capture_single_s:.3f} s for "
         f"the single-frame step; graph pools {pools_bytes} bytes"
@@ -1611,6 +1694,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     stats = check_kernels(feed, cfg)
+    k3 = check_pose_refine(cfg, device)
 
     launches_by_path: dict = {}
     warm = runner.run_sequence(feed, cfg, n_frames=N_FRAMES, device=device)  # warm run
@@ -1684,6 +1768,15 @@ def main() -> int:
         )
         for k, meta in KERNELS.items()
     ]
+    summary.append(dict(
+        name=K3, route="cuda", source="vo_tpu_torch/csrc/pose_refine.cu", replaces=None,
+        launches=sum(v[K3] for v in launches_by_path.values()),
+        launches_by_path={path: v[K3] for path, v in launches_by_path.items()},
+        **{k: k3[k] for k in ("n", "iters", "pose_gap_m", "pose_gap_rad", "inliers_differ", "mean_err_gap", "ms",
+                              "back_to_back_ms", "plain_ms", "plain_graph_ms", "floor_ms", "floor_share", "bound_ms",
+                              "bound_by")},
+        library_ms=None,
+    ))
     print(f"chip_smoke took {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

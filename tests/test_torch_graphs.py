@@ -272,7 +272,10 @@ def test_replay_adds_the_captured_launches():
     try:
         assert cap.replay() == ("out",) and cap.replay() == ("out",)
         assert g.replays == 2
-        assert kernels.LAUNCHES == {"extrema_scores": before["extrema_scores"] + 2, "bin_maps": before["bin_maps"] + 4}
+        assert kernels.LAUNCHES == {
+            "extrema_scores": before["extrema_scores"] + 2, "bin_maps": before["bin_maps"] + 4,
+            "pose_refine": before["pose_refine"],
+        }
     finally:
         kernels.LAUNCHES.update(before)
 

@@ -18,8 +18,8 @@ the default PipelineConfig. Prints, with the card's name and power limit:
   launching calls the host made: ``cudaLaunchKernel``, ``cudaGraphLaunch``,
   ``cudaMemcpyAsync`` and the like; one replay of a captured step is one
   ``cudaGraphLaunch`` however many kernels it runs), and the kernels
-  that take the most device time, with the two hand-written kernels named
-  (K1 extrema_scores, K2 bin_maps) whatever their rank;
+  that take the most device time, with the hand-written kernels named
+  (K1 extrema_scores, K2 bin_maps, K3 pose_refine) whatever their rank;
 - per stage of one 2-frame group (batched detection, each frame's _step_core,
   each landmark insert): host time to enqueue, wall time to a synchronise,
   device busy time and launches. Enqueue close to wall with little device time
@@ -112,11 +112,13 @@ from vo_tpu_torch.utils import profiling  # noqa: E402
 EAGER_TRACE_FRAMES = 30
 
 # Device kernel names of the hand-written kernels (csrc/*.cu), as the profiler reports them.
-HAND_WRITTEN = {"extrema_scores_kernel": "K1 extrema_scores", "bin_maps_kernel": "K2 bin_maps"}
+HAND_WRITTEN = {
+    "extrema_scores_kernel": "K1 extrema_scores", "bin_maps_kernel": "K2 bin_maps", "pose_refine_kernel": "K3 pose_refine",
+}
 
 
 def hand_written_ms(by_name) -> dict:
-    """{K1 ..., K2 ...: device ms} summed over the profiler's kernel names."""
+    """{K1 ..., K2 ..., K3 ...: device ms} summed over the profiler's kernel names."""
     return {label: sum(v for k, v in by_name.items() if key in k) for key, label in HAND_WRITTEN.items()}
 
 

@@ -1,15 +1,17 @@
-"""The front-end's two hand-written CUDA kernels: build, bind, wrappers and plain versions.
+"""The port's hand-written CUDA kernels: build, bind, and the front-end's wrappers and plain versions.
 
 K1 ``extrema_scores`` replaces vo_tpu/frontend/pallas_kernels.py::extrema_scores_pallas;
-K2 ``bin_maps`` replaces vo_tpu/frontend/pallas_kernels.py::bin_maps_pallas. Their
-sources are ``vo_tpu_torch/csrc/*.cu`` (CUDA C++ for sm_90a; each file notes what
-bounds its kernel). At first use the sources are compiled with ``nvcc`` into one
-shared library under ``build/vo_tpu_torch/`` (named by a hash of the sources and
-flags, so an edit rebuilds) and bound with ``ctypes``. The same library carries the
-tracer's one-thread stage stamp (``csrc/stage_stamp.cu``, wrapped by
-``utils.profiling.write_stamp``), which is no front-end kernel and counts apart.
+K2 ``bin_maps`` replaces vo_tpu/frontend/pallas_kernels.py::bin_maps_pallas. K3
+``pose_refine`` (RANSAC-P3P's consensus refinement) replaces no TPU kernel; its wrapper
+and plain version live with the rest of RANSAC in pose/ransac.py. Their sources are
+``vo_tpu_torch/csrc/*.cu`` (CUDA C++ for sm_90a; each file notes what bounds its
+kernel). At first use the sources are compiled with ``nvcc`` into one shared library
+under ``build/vo_tpu_torch/`` (named by a hash of the sources and flags, so an edit
+rebuilds) and bound with ``ctypes``. The same library carries the tracer's one-thread
+stage stamp (``csrc/stage_stamp.cu``, wrapped by ``utils.profiling.write_stamp``), which
+counts apart.
 
-Each kernel takes every octave of a detection call in ONE launch
+K1 and K2 take every octave of a detection call in ONE launch
 (``extrema_scores_octaves``, ``bin_maps_octaves``); the one-octave wrappers
 (``extrema_scores``, ``bin_maps``) launch the same kernels on a list of one.
 Each wrapper takes its plain PyTorch version only for tensors on the CPU; for
@@ -41,9 +43,9 @@ NB = 8  # orientation bins of the dense descriptor maps
 MAX_OCTAVES = 8  # octaves one launch takes (kMaxOctaves in csrc/*.cu)
 
 # Kernel launches since the last reset_launches(), by wrapper name.
-LAUNCHES = {"extrema_scores": 0, "bin_maps": 0}
+LAUNCHES = {"extrema_scores": 0, "bin_maps": 0, "pose_refine": 0}
 # Calls recorded into a CUDA graph under capture (never reset: utils.graphs reads the difference).
-CAPTURED = {"extrema_scores": 0, "bin_maps": 0}
+CAPTURED = {"extrema_scores": 0, "bin_maps": 0, "pose_refine": 0}
 
 _lib = None
 
@@ -106,6 +108,13 @@ def load() -> ctypes.CDLL:
             ptrs, ptrs, longs, longs, longs, ints, ints, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.vo_bin_maps.restype = ctypes.c_int
+        # K3 (csrc/pose_refine.cu; wrapper pose.ransac._finalize_f32): six inputs, n, fu, fv, cu, cv,
+        # thr2, huber, iters, min_points, five outputs, the stream.
+        lib.vo_pose_refine.argtypes = [
+            *[ctypes.c_void_p] * 6, ctypes.c_int, *[ctypes.c_float] * 6, ctypes.c_int, ctypes.c_int,
+            *[ctypes.c_void_p] * 6,
+        ]
+        lib.vo_pose_refine.restype = ctypes.c_int
         # The tracer's stage stamp (csrc/stage_stamp.cu; wrapper utils.profiling.write_stamp).
         lib.vo_stage_stamp.argtypes = [ctypes.c_void_p, ctypes.c_void_p, *[ctypes.c_int] * 4, ctypes.c_void_p]
         lib.vo_stage_stamp.restype = ctypes.c_int
@@ -147,12 +156,12 @@ def _empty_octaves(shapes, device) -> list:
     return [part.view(shape) for part, shape in zip(flat.split(sizes), shapes)]
 
 
-def _raise_on(err: int, name: str) -> None:
+def raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with cudaError_t {err}")
 
 
-def _count(name: str) -> None:
+def count_launch(name: str) -> None:
     """One launch of ``name``'s kernel, or one call recorded into a graph under capture."""
     (CAPTURED if torch.cuda.is_current_stream_capturing() else LAUNCHES)[name] += 1
 
@@ -200,8 +209,8 @@ def extrema_scores_octaves(dogs, thr: float, border: int = 5) -> list:
             len(dogs), B, L, 0.5 * thr, border,
             torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on(err, "extrema_scores")
-    _count("extrema_scores")
+    raise_on(err, "extrema_scores")
+    count_launch("extrema_scores")
     return outs
 
 
@@ -272,8 +281,8 @@ def bin_maps_octaves(levels) -> list:
             len(levels), B, L,
             torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on(err, "bin_maps")
-    _count("bin_maps")
+    raise_on(err, "bin_maps")
+    count_launch("bin_maps")
     return outs
 
 

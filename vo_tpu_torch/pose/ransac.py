@@ -6,6 +6,10 @@ scoring of every (hypothesis x point) reprojection as one reduction, then a
 fixed ``refine_iters`` IRLS-GN on the consensus set. Returns the camera pose in
 the 3D points' frame (camera-to-world), the convention chained at VO.m:130.
 
+The consensus refinement (gate, IRLS-GN, re-gate, packaging) is one launch of the
+hand-written kernel K3 ``pose_refine`` (csrc/pose_refine.cu) for CUDA tensors:
+``_finalize_f32`` takes its plain version ``_finalize_plain`` only for CPU tensors.
+
 The samples come from a ``torch.Generator`` and cannot match ``jax.random``;
 ``best_hypothesis`` and ``estimate_world_pose`` therefore also take the
 sampled triples as an input, so tests can inject the reference's own draws.
@@ -21,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import RansacConfig
+from ..frontend import kernels
 from ..geom import se3
 from ..geom.camera import StereoCalib
 from ..utils.padding import take
@@ -63,7 +68,10 @@ def _sample_triples(gen: torch.Generator, mask: torch.Tensor, n_hyp: int) -> tor
     return torch.topk(logits[None, :] + g, 3, dim=1).indices
 
 
-def refine_pose(R0, t0, px2d, pts3d, weights, calib: StereoCalib, iters: int, huber_px: float = 2.0):
+HUBER_PX = 2.0  # the refinement's Huber threshold (px)
+
+
+def refine_pose(R0, t0, px2d, pts3d, weights, calib: StereoCalib, iters: int, huber_px: float = HUBER_PX):
     """Masked IRLS Gauss-Newton on the world->cam pose. Returns refined (R, t)."""
     R, t = R0, t0
     eye6 = 1e-6 * torch.eye(6, dtype=px2d.dtype, device=px2d.device)
@@ -127,7 +135,47 @@ def finalize_pose(R_best, t_best, any_valid, px2d, pts3d, mask, calib: StereoCal
 
 
 def _finalize_f32(R_best, t_best, any_valid, px2d, pts3d, mask, calib: StereoCalib, cfg: RansacConfig) -> PoseEstimate:
-    """Refine the winning hypothesis on its consensus set and package the result."""
+    """Refine the winning hypothesis on its consensus set and package the result: the plain
+    version on the CPU, one launch of K3 on the current stream for CUDA tensors."""
+    if px2d.device.type == "cpu":
+        return _finalize_plain(R_best, t_best, any_valid, px2d, pts3d, mask, calib, cfg)
+    n = px2d.shape[0]
+    expected = (  # in the kernel's order
+        (px2d, torch.float32, (n, 2)), (pts3d, torch.float32, (n, 3)), (mask, torch.bool, (n,)),
+        (R_best, torch.float32, (3, 3)), (t_best, torch.float32, (3,)), (any_valid, torch.bool, ()),
+    )
+    for x, dtype, shape in expected:
+        if x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous() or x.device != px2d.device:
+            raise ValueError(
+                f"pose_refine: expected contiguous {dtype} {shape} on {px2d.device}, got {x.dtype} "
+                f"{tuple(x.shape)} strides {x.stride()} on {x.device}"
+            )
+    if px2d.device.type != "cuda":
+        raise ValueError(f"pose_refine: expected CPU or CUDA tensors, got device {px2d.device}")
+    if n >= 2**24:
+        raise ValueError(f"pose_refine: {n} points; the kernel counts inliers in float32, exact below 2**24")
+    dev = px2d.device
+    pose = torch.empty((4, 4), dtype=torch.float32, device=dev)
+    inliers = torch.empty(n, dtype=torch.bool, device=dev)
+    n_in = torch.empty((), dtype=torch.int64, device=dev)
+    ok = torch.empty((), dtype=torch.bool, device=dev)
+    mean_err = torch.empty((), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = kernels.load().vo_pose_refine(
+            *(x.data_ptr() for x, _, _ in expected),
+            n, calib.fu, calib.fv, calib.cu, calib.cv, cfg.max_reproj_err_px**2, HUBER_PX, cfg.refine_iters,
+            cfg.min_points,
+            *(x.data_ptr() for x in (pose, inliers, n_in, ok, mean_err)),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    kernels.raise_on(err, "pose_refine")
+    kernels.count_launch("pose_refine")
+    return PoseEstimate(pose_c2w=pose, inliers=inliers, n_inliers=n_in, ok=ok, mean_err=mean_err)
+
+
+def _finalize_plain(R_best, t_best, any_valid, px2d, pts3d, mask, calib: StereoCalib, cfg: RansacConfig) -> PoseEstimate:
+    """Refine the winning hypothesis on its consensus set and package the result: the plain
+    PyTorch version of K3 (csrc/pose_refine.cu), taken for CPU tensors."""
     n_valid = mask.sum()
     thr2 = cfg.max_reproj_err_px**2
     pred0, z0 = _project_w2c(R_best, t_best, pts3d, calib)
