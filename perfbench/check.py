@@ -19,7 +19,15 @@ frame. Each number below is compared with its limit in ``workloads/<cell>.json``
   previous pose composed with its relative pose (float64), over 1 m plus the distance from the
   origin (float32 world coordinates round in proportion to it).
 
-The control (``control``) puts the reference computed with TF32 products in the program's place.
+The program's side of these numbers is the frame loop's own rows (``step_rows``): on the refined
+path ``RunResult.poses`` / ``rel_poses`` are re-anchored onto the refiner's keyframes after the
+loop, and what the refiner made of them is for the configuration's own numbers to judge.
+
+A workload adds numbers of its own by name: each ``checks/<name>.py`` that its ``check.extra``
+lists defines ``NUMBERS`` (a tuple of names) and ``values(cell, run, device) -> dict`` (a value
+for every one of them, and optionally ``where``), judged like the numbers above against the
+workload's limits. The control (``control``) puts the reference computed with TF32 products in
+the program's place.
 """
 from __future__ import annotations
 
@@ -31,6 +39,25 @@ from .reference import frame as ref
 
 NUMBERS = ("rows_missing", "stat_mismatches", "rel_t_gap_m", "rel_r_gap_rad", "landmark_miss_share", "chain_rel_gap")
 LANDMARK_TOL_M = 1e-3  # a landmark "is in the map" within this: 60x the widest float32 world rounding seen (1.5e-5 m)
+
+
+def numbers(extras) -> tuple:
+    """Every number a workload is judged on: ``NUMBERS`` and then each of its ``extras``' (the
+    modules ``checks/<name>.py``); a name given twice is refused."""
+    out = list(NUMBERS)
+    for mod in extras:
+        for name in mod.NUMBERS:
+            if name in out:
+                raise ValueError(f"check number {name!r} of {mod.__name__} is already a number of the check")
+            out.append(name)
+    return tuple(out)
+
+
+def step_rows(res) -> tuple:
+    """(world poses, relative poses) [T, 4, 4] of a RunResult as its frame loop computed them:
+    ``step_poses`` / ``step_rel_poses`` where the program gives them, else ``poses`` /
+    ``rel_poses``, which are those rows on the plain path."""
+    return getattr(res, "step_poses", res.poses), getattr(res, "step_rel_poses", res.rel_poses)
 
 
 def sample(jobs, n: int, seed: int) -> dict:
@@ -147,20 +174,20 @@ def compare(frames: dict, refs: dict, device) -> dict:
 
 
 def program_frames(jobs, samples: dict, device) -> dict:
-    """The program's side of ``compare`` for the sampled frames (result row t - 1 is frame t)."""
+    """The program's side of ``compare`` for the sampled frames (step row t - 1 is frame t)."""
     out = {}
     for j in jobs:
         ts = samples.get(j.index)
         if not ts:
             continue
         res = j.result
+        poses, rels = step_rows(res)
         lmap = torch.as_tensor(np.asarray(res.landmarks, np.float32), device=device)
         for t in ts:
             r = t - 1
-            prev = res.rel_poses[r - 1].astype(np.float64) if r >= 1 else None
+            prev = rels[r - 1].astype(np.float64) if r >= 1 else None
             out[(j.index, t)] = (
-                res.rel_poses[r].astype(np.float64), res.pose_ok[r], res.n_tracks[r], res.n_inliers[r], prev,
-                res.poses[r], lmap,
+                rels[r].astype(np.float64), res.pose_ok[r], res.n_tracks[r], res.n_inliers[r], prev, poses[r], lmap,
             )
     return out
 
@@ -168,8 +195,7 @@ def program_frames(jobs, samples: dict, device) -> dict:
 def chain_rel_gap(jobs) -> float:
     worst = 0.0
     for j in jobs:
-        P = np.asarray(j.result.poses, np.float64)
-        R = np.asarray(j.result.rel_poses, np.float64)
+        P, R = (np.asarray(a, np.float64) for a in step_rows(j.result))
         if len(P) == 0:
             continue
         prev = np.concatenate([np.eye(4)[None], P[:-1]])
@@ -178,20 +204,20 @@ def chain_rel_gap(jobs) -> float:
     return worst
 
 
-def judge(values: dict, limits: dict) -> dict:
-    """Each number beside its limit; ``where`` (the frames that set the widest readings) goes to
-    standard error only."""
+def judge(values: dict, limits: dict, names: tuple = NUMBERS) -> dict:
+    """Each of ``names`` that ``values`` holds beside its limit; ``where`` (the frames that set the
+    widest readings) goes to standard error only."""
     import sys
 
     for name, w in values.get("where", {}).items():
         print(f"# check {name} set by {w}", file=sys.stderr)
-    numbers = {}
-    for name in NUMBERS:
+    out = {}
+    for name in names:
         if name not in values:
             continue
         v, lim = values[name], limits[name]
-        numbers[name] = dict(value=v, limit=lim, ok=bool(np.isfinite(v) and v <= lim))
-    return dict(correct=all(c["ok"] for c in numbers.values()), numbers=numbers)
+        out[name] = dict(value=v, limit=lim, ok=bool(np.isfinite(v) and v <= lim))
+    return dict(correct=all(c["ok"] for c in out.values()), numbers=out)
 
 
 def run_check(cell, run, device) -> dict:
@@ -200,7 +226,14 @@ def run_check(cell, run, device) -> dict:
     values = compare(program_frames(run.jobs, samples, device), refs, device)
     values["rows_missing"] = sum(abs(j.n_frames - 1 - len(j.result.poses)) for j in run.jobs)
     values["chain_rel_gap"] = chain_rel_gap(run.jobs)
-    return judge(values, cell.check["limits"])
+    for mod in cell.extras:
+        v = mod.values(cell, run, device)
+        missing = [name for name in mod.NUMBERS if name not in v]
+        if missing:
+            raise ValueError(f"{mod.__name__} gave no value for {missing}")
+        values["where"].update(v.get("where", {}))
+        values.update({name: v[name] for name in mod.NUMBERS})
+    return judge(values, cell.check["limits"], numbers(cell.extras))
 
 
 def control(cell, seed: int, jobs, group: int, device) -> dict:

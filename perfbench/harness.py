@@ -3,9 +3,11 @@
     python3 perfbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 A cell is ``perfbench/workloads/<cell>.json``: a configuration (``configs/<name>.json``, the
-program's ``PipelineConfig``) under a traffic mix
-(``traffic/<name>.json``, read by gen.traffic). The metrics the run prints are the ones
-``BENCHMARK.json`` lists for the cell; each is read by ``metrics/<name>.py`` (``read(run)``).
+program's ``PipelineConfig`` and, in ``run``, the options it passes to ``run_sequence``) under a
+traffic mix (``traffic/<name>.json``, read by gen.traffic), and its check: the sample, the limits,
+and in ``extra`` the checks of its own (``checks/<name>.py``, perfbench/check.py). The metrics the
+run prints are the ones ``BENCHMARK.json`` lists for the cell; each is read by
+``metrics/<name>.py`` (``read(run)``).
 
 Set-up: the program's modules, the world (rendered into ``perfbench/.cache`` by a cell's first
 run, memory-mapped by the others) staged on the card, and one short warm job with the window's
@@ -38,11 +40,17 @@ import torch
 from .gen import traffic as traffic_mod
 from .gen import world as world_mod
 from .gen.traffic import HERE
+from . import check as check_mod
 from . import trace as trace_mod
 from .arith import ate_errors
 
 ROOT = os.path.dirname(HERE)
+METRICS = os.path.join(HERE, "metrics")  # metrics/<name>.py: a metric's reader
+CHECKS = os.path.join(HERE, "checks")  # checks/<name>.py: a check's own numbers (a workload's check.extra)
 FORBIDDEN = ("jax", "jaxlib", "flax", "vo_tpu")  # top-level module names the run may not hold
+# The run_sequence options a configuration's ``run`` may set; the harness owns seed, device,
+# progress, graph and n_frames.
+RUN_OPTIONS = ("use_ba", "use_loop_closure")
 # runner.HISTORY_CHUNK (128) + 1, odd: the group step, the single-frame tail, and one full history
 # chunk stacked (the rows are frames 1 ..), the fewest frames that run every step of a window job.
 WARM_FRAMES = 129
@@ -59,13 +67,33 @@ def cell_metrics(bench: dict, cell: str) -> tuple[list, list]:
     return pick(bench["end_to_end"]), pick(bench["per_layer"])
 
 
-def reader(name: str):
-    """``metrics/<name>.py``'s ``read``."""
-    path = os.path.join(HERE, "metrics", f"{name}.py")
-    spec = importlib.util.spec_from_file_location(f"perfbench.metrics.{name}", path)
+def module(folder: str, name: str):
+    """``<folder>/<name>.py``, loaded."""
+    path = os.path.join(folder, f"{name}.py")
+    if not os.path.isfile(path):
+        raise ValueError(f"no file {os.path.relpath(path, ROOT)} for {name!r}")
+    spec = importlib.util.spec_from_file_location(f"perfbench.{os.path.basename(folder)}.{name}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(name: str):
+    """``metrics/<name>.py``'s ``read``."""
+    return module(METRICS, name).read
+
+
+def run_options(config: dict) -> dict:
+    """A configuration file's ``run`` object: the ``run_sequence`` options it sets (none: ``{}``)."""
+    run = config.get("run", {})
+    if not isinstance(run, dict):
+        raise ValueError(f"configuration {config.get('name')!r}: run must be an object, not {type(run).__name__}")
+    for k, v in run.items():
+        if k not in RUN_OPTIONS:
+            raise ValueError(f"configuration {config.get('name')!r}: run option {k!r} is not one of {RUN_OPTIONS}")
+        if not isinstance(v, bool):
+            raise ValueError(f"configuration {config.get('name')!r}: run option {k!r} must be true or false, not {v!r}")
+    return dict(run)
 
 
 def program_config(d: dict):
@@ -167,7 +195,9 @@ def sync(device) -> None:
 
 
 class Cell:
-    """A cell's files, loaded: configuration, traffic, world, and the program's entry."""
+    """A cell's files, loaded: configuration and its ``run`` options, traffic, world, the check's
+    own modules (``extras``), and the program's entry. A ``run`` option or a set of check limits
+    that does not fit is refused here, before any run."""
 
     def __init__(self, name: str, overrides: Optional[dict] = None):
         spec = load_json(HERE, "workloads", f"{name}.json")
@@ -179,12 +209,30 @@ class Cell:
             self.config = _merge(self.config, overrides.get("config", {}))
             self.traffic = dataclasses.replace(self.traffic, **overrides.get("traffic", {}))
             self.check = _merge(self.check, overrides.get("check", {}))
+        self.run_options = run_options(self.config)
+        self.extras = [module(CHECKS, n) for n in self.check.get("extra", [])]
+        numbers = check_mod.numbers(self.extras)
+        limits = set(self.check.get("limits", {}))
+        if limits != set(numbers):
+            raise ValueError(
+                f"workload {name}: check limits {sorted(limits)} are not its numbers {sorted(numbers)}: "
+                f"missing {sorted(set(numbers) - limits)}, spare {sorted(limits - set(numbers))}"
+            )
         self.world = world_mod.World(self.config, self.traffic)
 
     def group(self) -> int:
-        """Frames per detection call on the window's path: the runner groups ``fused_group`` frames on
-        its deferred path, and steps frame by frame where ``progress`` reads every pose (open loop)."""
-        return 1 if self.traffic.loop == "open" else program_config(self.config["pipeline"]).fused_group
+        """Frames per detection call on the window's path, as the runner steps them: ``fused_group``
+        frames on its deferred path, one where ``progress`` reads every pose (open loop) or where the
+        refined path (``use_ba`` / ``use_loop_closure``) hands keyframes to its refiner. The
+        program's ``runner.step_group`` decides where the program has one."""
+        from vo_tpu_torch.odometry import runner
+
+        cfg = program_config(self.config["pipeline"])
+        deferred, refined = self.traffic.loop != "open", any(self.run_options.values())
+        rule = getattr(runner, "step_group", None)
+        if rule is not None:
+            return rule(cfg, deferred=deferred, refined=refined, meshed=False)
+        return cfg.fused_group if deferred and not refined else 1
 
 
 def _merge(a: dict, b: dict) -> dict:
@@ -222,7 +270,7 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float, 
         feed = LiveFeed(x, calib, w.gt_log[:n], t.period_s) if live and not warm else Feed(x, calib, w.gt_log[:n])
         js = world_mod.job_seed(seed, job)
         # The open loop reads each frame's pose through ``progress``: the non-deferred, frame-by-frame path.
-        kw = dict(progress=getattr(feed, "progress", lambda i, stats: None)) if live else {}
+        kw = dict(cell.run_options, progress=getattr(feed, "progress", lambda i, stats: None)) if live else dict(cell.run_options)
         t0 = time.perf_counter()
         with torch.profiler.record_function(trace_mod.JOB_SPAN):
             res = run_sequence(feed, cfg, seed=js, device=device, **kw)
@@ -296,8 +344,6 @@ def metrics_of(cell: Cell, run: Run, bench: dict, trace: bool) -> dict:
 def run_cell(name: str, seed: int, seconds: float, trace: bool, t_start: float, chips: int = 1, device=None,
              overrides: Optional[dict] = None, workers: int = 8) -> tuple[int, Optional[dict]]:
     """Everything after the look for a card -> (exit code, the result line's object or None)."""
-    from . import check
-
     bench = load_json(ROOT, "BENCHMARK.json")
     cell = Cell(name, overrides)
     run = measure(cell, seed, seconds, trace, t_start, device=device, workers=workers)
@@ -331,7 +377,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, t_start: float, 
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    checks = check.run_check(cell, run, dev)
+    checks = check_mod.run_check(cell, run, dev)
     print(f"# check: {time.perf_counter() - t0:.3f} s", file=sys.stderr)
     out = dict(correct=bool(checks["correct"]), attempted=attempted, failed=failed, metrics=metrics, device=device_json)
     if trace and run.trace is not None:

@@ -28,3 +28,38 @@ SMALL = dict(
 )
 # SMALL for a closed-loop cell: a window of two jobs (the traffic file's 8 would take the CPU long).
 SMALL_CLOSED = dict(SMALL, traffic=dict(SMALL["traffic"], jobs=2))
+# SMALL_CLOSED on the refined path (window BA + loop closure), over 31-frame logs (GT poses 0..15..0):
+# six keyframes a job, so the refiner solves the window and re-anchoring moves rows.
+REFINED = dict(
+    SMALL_CLOSED,
+    config=dict(SMALL_CLOSED["config"], run=dict(use_ba=True, use_loop_closure=True)),
+    traffic=dict(SMALL_CLOSED["traffic"], poses=16),
+)
+
+
+@pytest.fixture
+def step_rows(monkeypatch):
+    """Every RunResult carries the frame loop's own rows, before re-anchoring, as ``step_poses`` /
+    ``step_rel_poses``: where the program's ``RunResult`` has no such fields, this stands in for
+    them with the rows ``run_sequence`` reads from its history (``_History.stacked``) after its loop."""
+    import dataclasses
+
+    from vo_tpu_torch.odometry import runner
+
+    if "step_poses" in {f.name for f in dataclasses.fields(runner.RunResult)}:
+        return
+    kept = []
+    stacked, run_sequence = runner._History.stacked, runner.run_sequence
+
+    def keep(self):
+        kept.append(stacked(self))
+        return kept[-1]
+
+    def with_rows(*a, **k):
+        kept.clear()
+        res = run_sequence(*a, **k)
+        res.step_poses, res.step_rel_poses = kept[-1]["pose_c2w"], kept[-1]["rel_pose"]
+        return res
+
+    monkeypatch.setattr(runner._History, "stacked", keep)
+    monkeypatch.setattr(runner, "run_sequence", with_rows)

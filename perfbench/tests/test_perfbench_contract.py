@@ -18,11 +18,12 @@ BENCH = json.load(open(os.path.join(ROOT, "BENCHMARK.json")))
 def test_cells_configs_and_metrics_have_their_files():
     for c in BENCH["configs"]:
         assert os.path.exists(os.path.join(ROOT, c["file"]))
+        harness.run_options(json.load(open(os.path.join(ROOT, c["file"]))))
     for w in BENCH["workloads"]:
         spec = json.load(open(os.path.join(ROOT, "perfbench", "workloads", f"{w['name']}.json")))
         assert (spec["config"], spec["traffic"]) == (w["config"], w["traffic"])
         assert os.path.exists(os.path.join(ROOT, "perfbench", "traffic", f"{w['traffic']}.json"))
-        assert set(spec["check"]["limits"]) == set(harness_check_numbers())
+        assert set(spec["check"]["limits"]) == set(harness_check_numbers(spec["check"]))
     for m in BENCH["end_to_end"] + BENCH["per_layer"]:
         assert callable(harness.reader(m["name"]))
     names = {w["name"] for w in BENCH["workloads"]}
@@ -30,10 +31,11 @@ def test_cells_configs_and_metrics_have_their_files():
         assert set(m.get("workloads", names)) <= names
 
 
-def harness_check_numbers():
+def harness_check_numbers(spec):
+    """The numbers a workload's check judges: check.NUMBERS and its ``extra`` modules' NUMBERS."""
     from perfbench import check
 
-    return check.NUMBERS
+    return check.numbers([harness.module(harness.CHECKS, n) for n in spec.get("extra", [])])
 
 
 def test_exits_without_a_card_and_prints_nothing():

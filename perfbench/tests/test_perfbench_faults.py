@@ -5,7 +5,8 @@ with one fault planted in the program:
 - the step returns its state unchanged;
 - half of each detection batch left out (the group's second frame gets the first one's features);
 - an answer altered where it is produced: the pose estimate moved 1 cm, the landmarks the step
-  inserts moved 1 cm, or the world pose the step chains moved 1 cm a frame.
+  inserts moved 1 cm, or the world pose the step chains moved 1 cm a frame (on the plain and on the
+  refined path).
 
 (The cells run on one card: there is no exchange between cards to leave out.)
 """
@@ -16,11 +17,11 @@ import torch
 
 from perfbench import harness
 
-from .conftest import SMALL_CLOSED
+from .conftest import REFINED, SMALL_CLOSED
 
 
-def _run(cell="vo.offline"):
-    code, out = harness.run_cell(cell, 2**32 + 11, 1.0, False, time.perf_counter(), device="cpu", overrides=SMALL_CLOSED, workers=2)
+def _run(cell="vo.offline", overrides=SMALL_CLOSED):
+    code, out = harness.run_cell(cell, 2**32 + 11, 1.0, False, time.perf_counter(), device="cpu", overrides=overrides, workers=2)
     assert code == 0
     print({k: v["value"] for k, v in out["checks"].items()})
     return out
@@ -95,8 +96,13 @@ def test_landmarks_altered(monkeypatch):
     assert out["correct"] is False and _failed(out) == ["landmark_miss_share"]
 
 
-def test_world_pose_altered(monkeypatch):
+@pytest.mark.parametrize("path", ["plain", "refined"])
+def test_world_pose_altered(monkeypatch, request, path):
+    """Also on the refined path, where the check reads the frame loop's own rows (``step_rows``)."""
     from vo_tpu_torch.odometry import pipeline
+
+    if path == "refined":
+        request.getfixturevalue("step_rows")
 
     core = pipeline._step_core
 
@@ -107,5 +113,5 @@ def test_world_pose_altered(monkeypatch):
         return new._replace(pose_c2w=p), out._replace(pose_c2w=p)
 
     monkeypatch.setattr(pipeline, "_step_core", drifting)
-    out = _run()
+    out = _run(overrides=REFINED if path == "refined" else SMALL_CLOSED)
     assert out["correct"] is False and "chain_rel_gap" in _failed(out)
