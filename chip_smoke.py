@@ -54,7 +54,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      VO once, then the refined path once, timed, with the launch counters
      reset (the refiner's own warm-ups run before its timed loop). Fails on a non-finite pose, a wrong pose count, keyframes
      != 39, no window solve, no verified loop candidate, refined ATE > plain
-     ATE + 0.02 m, plain ATE > 0.15 m, or a kernel the timed run never launched;
+     ATE + 0.02 m, plain ATE > 0.15 m, or a kernel the timed run never launched,
+     on step rows (``step_poses``) missing or not chaining, and on refiner
+     records (``refine_log``) missing or fewer or more than ``refine_stats``
+     counts (checked again on phase 15's eager refined run);
      and unless each of the refined path's four programs (``window_solve``,
      ``verification_round``, ``global_descriptor``, ``keyframe_association``:
      ``graphs.PROGRAMS``, set to 0 just before the run) was captured once per
@@ -572,6 +575,30 @@ class OutAndBackFeed:
         return self.frames[i]
 
 
+def require_refine_records(res, what: str) -> None:
+    """A refined ``RunResult`` carries the frame loop's rows (``step_poses``, which chain) and the
+    refiner's records, as many as ``refine_stats`` counts."""
+    if res.step_poses is None or res.step_poses.shape != res.poses.shape or res.refine_log is None:
+        raise AssertionError(f"{what}: no step rows or no refine_log")
+    P, R = (np.asarray(a, np.float64) for a in (res.step_poses, res.step_rel_poses))
+    prev = np.concatenate([np.eye(4)[None], P[:-1]])
+    gap = np.linalg.norm(np.einsum("tij,tjl->til", prev, R)[:, :3, 3] - P[:, :3, 3], axis=1)
+    if not gap.max() <= 1e-5 * (1.0 + np.abs(P[:, :3, 3]).max()):
+        raise AssertionError(f"{what}: the step rows do not chain ({gap.max()} m)")
+    st, log = res.refine_stats, res.refine_log
+    verdicts = [w.verdict for w in log.window_solves]
+    got = dict(
+        records_window=len(log.window_solves), ba_solves=verdicts.count("accepted"), ba_rejected=verdicts.count("rejected"),
+        records_graph=len(log.graph_solves), loops_closed=sum(g.T is not None for g in log.graph_solves),
+        records_rounds=len(log.rounds), lc_verified=sum(int(r.verdict.sum()) for r in log.rounds),
+        n_keyframes=int(log.kf_frame_idx.size),
+    )
+    want = {k: st.get(k) for k in got}
+    if got != want:
+        raise AssertionError(f"{what}: records {got} against refine_stats {want}")
+    print(f"    {what}: records {got}")
+
+
 def refined_path(feed: OutAndBackFeed, cfg: PipelineConfig, device):
     """Phase 5: plain VO and the refined path over the out-and-back feed -> (launches, the refined result)."""
     n = len(feed)
@@ -602,6 +629,7 @@ def refined_path(feed: OutAndBackFeed, cfg: PipelineConfig, device):
         raise AssertionError("no window BA solve was accepted")
     if st.get("lc_verified", 0) < 1:
         raise AssertionError("no loop candidate was verified")
+    require_refine_records(res, "phase 5, refined")
     if not ate_plain <= PLAIN_ATE_MAX_M:
         raise AssertionError(f"plain ATE {ate_plain} m > {PLAIN_ATE_MAX_M} m")
     if not ate <= ate_plain + REFINED_ATE_SLACK_M:
@@ -1552,6 +1580,7 @@ def graphed_against_eager(feed, feed5, cfg: PipelineConfig, device, plain: runne
     require_bit_equal(plain, eager, "plain path, graphed against eager")
     eager5 = runner.run_sequence(feed5, cfg, use_ba=True, use_loop_closure=True, device=device, graph=False)
     require_bit_equal(refined, eager5, "refined path, graphed against eager")
+    require_refine_records(eager5, "phase 15, refined eager")
     keys = ("n_keyframes", "ba_solves", "lc_verified", "loops_closed")
     want_kf = (len(feed5) - 1) // cfg.ba.keyframe_every
     if [refined.refine_stats[k] for k in keys] != [eager5.refine_stats[k] for k in keys] or refined.refine_stats["n_keyframes"] != want_kf:

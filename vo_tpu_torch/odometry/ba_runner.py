@@ -27,13 +27,15 @@ because the reference module imports jax. The device solve is dispatched
 without reading it: the host copies of its whole result (poses, landmarks,
 costs and observation count) start at dispatch (utils.host_copy) and are
 read ``PIPELINE_DEPTH`` keyframes later; ``last_result`` keeps the last one
-that passed the cost gate, as host arrays.
+that passed the cost gate, as host arrays. ``records`` keeps every solve that
+``collect`` took past the cost gate (``WindowSolve``): the problem as the host
+assembled it, the result as it was read, and the correction gate's verdict.
 """
 from __future__ import annotations
 
 import dataclasses
 from collections import deque
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -73,6 +75,15 @@ class Keyframe:
     l_px: np.ndarray  # [C, 2]
     r_px: np.ndarray  # [C, 2]
     mask: np.ndarray  # [C]
+
+
+class WindowSolve(NamedTuple):
+    """A window solve that ``WindowedBA.collect`` took past the cost gate, as host arrays."""
+
+    frame_idx: np.ndarray  # [n] int64, the window's keyframes at dispatch, oldest first
+    problem: BAProblem  # numpy: the problem as assembled (float32, bool masks), slots n.. unused
+    result: BAResult  # numpy: the solve's output as collect read it
+    verdict: str  # "accepted", "rejected" (the correction gate) or "stale" (its last keyframe left the window)
 
 
 class WindowAssociator:
@@ -186,8 +197,10 @@ class WindowedBA:
         self.last_result: Optional[BAResult] = None
         self.n_rejected = 0  # solves discarded by the correction sanity gate
         # In-flight solves: (HostCopy of the BAResult's fields, window frame_idxs at
-        # dispatch), collected PIPELINE_DEPTH keyframes later (dispatch()).
+        # dispatch, the host problem), collected PIPELINE_DEPTH keyframes later (dispatch()). A
+        # solve restored from a checkpoint has no host problem: (HostCopy, frame_idxs).
         self._pending: deque = deque()
+        self.records: list[WindowSolve] = []  # every solve collect took past the cost gate
         self.n_active: list[int] = []  # active landmarks per assembled window
         self.n_candidate: list[int] = []  # multi-view tracks before capacity cap
 
@@ -225,6 +238,12 @@ class WindowedBA:
         self.window.append(kf)
 
     def _assemble(self) -> Optional[BAProblem]:
+        """The current window's problem on the device, or None."""
+        host = self._assemble_host()
+        return None if host is None else ba_problem_from_numpy(host, self.device)
+
+    def _assemble_host(self) -> Optional[dict]:
+        """The current window's problem as host arrays ({BAProblem field: np.ndarray}), or None."""
         K = self.cfg.window
         M = self.cfg.max_points
         kfs = list(self.window)
@@ -313,12 +332,9 @@ class WindowedBA:
         self.n_active.append(int(X_mask.sum()))
         if X_mask.sum() < 12:
             return None
-        return ba_problem_from_numpy(
-            dict(
-                T_c2w=T0, X=X0, obs_uv=obs_uv, obs_mask=obs_mask, obs_ur=obs_ur,
-                obs_ur_mask=obs_mask, X_mask=X_mask, kf_mask=kf_mask,
-            ),
-            self.device,
+        return dict(
+            T_c2w=T0, X=X0, obs_uv=obs_uv, obs_mask=obs_mask, obs_ur=obs_ur,
+            obs_ur_mask=obs_mask, X_mask=X_mask, kf_mask=kf_mask,
         )
 
     PIPELINE_DEPTH = 2  # keyframes between a solve's dispatch and its collect
@@ -330,12 +346,13 @@ class WindowedBA:
 
     def prepare(self):
         """The host half of ``dispatch``: the current window's problem, assembled and uploaded on
-        the current stream, with the window's frame indices -> (BAProblem, [frame_idx]), or None
-        where the window has nothing to solve."""
-        prob = self._assemble()
-        if prob is None:
+        the current stream, with the window's frame indices and the host arrays it was uploaded from
+        -> (BAProblem, [frame_idx], {field: np.ndarray}), or None where the window has nothing to
+        solve."""
+        host = self._assemble_host()
+        if host is None:
             return None
-        return prob, [kf.frame_idx for kf in self.window]
+        return ba_problem_from_numpy(host, self.device), [kf.frame_idx for kf in self.window], host
 
     def launch(self, prepared) -> bool:
         """The device half of ``dispatch``: solve a ``prepare``d problem on the current stream
@@ -344,9 +361,9 @@ class WindowedBA:
         keyframes later (collect()). Returns whether a solve was launched."""
         if prepared is None:
             return False
-        prob, kf_idxs = prepared
+        prob, kf_idxs, host = prepared
         res = self._solve(prob)
-        self._pending.append((HostCopy(*res), kf_idxs))
+        self._pending.append((HostCopy(*res), kf_idxs, host))
         return True
 
     def drop_pending(self) -> None:
@@ -368,35 +385,48 @@ class WindowedBA:
         smaller than that. A sliding window can only observe intra-window
         structure; accumulated drift is the pose graph's job
         (slam.loop_closure), so corrections here are deliberately bounded
-        and non-compounding."""
+        and non-compounding.
+
+        Each solve past the cost gate goes into ``records`` with its verdict, but one restored
+        from a checkpoint, whose host problem the checkpoint does not hold."""
         out = []
         while self._pending and (drain or len(self._pending) >= self.PIPELINE_DEPTH):
-            copy, kf_idxs = self._pending.popleft()
+            copy, kf_idxs, *host = self._pending.popleft()
             res = BAResult(*copy.numpy())
             if not np.isfinite(float(res.cost)) or float(res.cost) > float(res.cost0):
                 continue
             self.last_result = res
-            n = len(kf_idxs)
-            T_new = res.T_c2w[:n]
-            # Sanity gate on the LAST keyframe's correction: beyond plausible
-            # intra-window drift means the solve wandered (weak
-            # conditioning); discard rather than corrupt the trajectory
-            # through re-anchoring.
-            T_old_last = None
-            for kf in self.window:
-                if kf.frame_idx == kf_idxs[-1]:
-                    T_old_last = kf.pose_c2w
-            if T_old_last is None:  # window moved on entirely; stale solve
-                continue
-            correction = T_new[-1] @ np.linalg.inv(T_old_last)
-            d_t = float(np.linalg.norm(correction[:3, 3]))
-            cos_a = np.clip((np.trace(correction[:3, :3]) - 1.0) / 2.0, -1.0, 1.0)
-            d_deg = float(np.degrees(np.arccos(cos_a)))
-            if d_t > self.cfg.max_corr_t or d_deg > self.cfg.max_corr_deg:
+            verdict = self._correction_verdict(res, kf_idxs)
+            if host and host[0] is not None:
+                self.records.append(
+                    WindowSolve(np.asarray(kf_idxs, np.int64), BAProblem(**host[0]), res, verdict)
+                )
+            if verdict == "rejected":
                 self.n_rejected += 1
-                continue
-            out.append((kf_idxs, T_new))
+            elif verdict == "accepted":
+                out.append((kf_idxs, res.T_c2w[: len(kf_idxs)]))
         return out
+
+    def _correction_verdict(self, res: BAResult, kf_idxs: list) -> str:
+        """The correction gate on a collected solve: "accepted", "rejected", or "stale"."""
+        T_new = res.T_c2w[: len(kf_idxs)]
+        # Sanity gate on the LAST keyframe's correction: beyond plausible
+        # intra-window drift means the solve wandered (weak
+        # conditioning); discard rather than corrupt the trajectory
+        # through re-anchoring.
+        T_old_last = None
+        for kf in self.window:
+            if kf.frame_idx == kf_idxs[-1]:
+                T_old_last = kf.pose_c2w
+        if T_old_last is None:  # window moved on entirely; stale solve
+            return "stale"
+        correction = T_new[-1] @ np.linalg.inv(T_old_last)
+        d_t = float(np.linalg.norm(correction[:3, 3]))
+        cos_a = np.clip((np.trace(correction[:3, :3]) - 1.0) / 2.0, -1.0, 1.0)
+        d_deg = float(np.degrees(np.arccos(cos_a)))
+        if d_t > self.cfg.max_corr_t or d_deg > self.cfg.max_corr_deg:
+            return "rejected"
+        return "accepted"
 
     def optimize(self):
         """Synchronous dispatch + collect (tests / non-pipelined callers).

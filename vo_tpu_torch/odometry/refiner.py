@@ -51,9 +51,20 @@ once the main thread has launched the previous one's solve. Every
 collective of a rank then comes from one thread on one stream, in an order
 fixed by frame index, over the mesh's own group. Without a mesh, or with a
 "model" axis of one, the worker launches its solves itself.
+
+RECORDS. ``refine_log()`` gathers what the solvers kept of their work, as host
+arrays, in the order it was done (``RefineLog``): the window solves past the
+cost gate (odometry.ba_runner), the pose-graph solves and the verification
+rounds (slam.loop_closure), the final corrected keyframes, and the order in
+which the worker applied them to its keyframe ledger (``RefineLog.order``:
+each keyframe's entry, then the graph solves made and the window solves
+collected at it); ``stats`` counts them. They are kept from what is on the
+host already, and they do not go through a checkpoint: a resumed run records
+from the resume on, while its counters carry on from the checkpoint.
 """
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
 from collections import deque
@@ -70,6 +81,21 @@ from ..utils import graphs
 from ..utils.device import resolve
 from ..utils.host_copy import HostCopy
 from ..utils.profiling import span
+
+
+@dataclasses.dataclass
+class RefineLog:
+    """The refiner's records of one run (``RefinerWorker.refine_log``), host arrays only."""
+
+    window_solves: list  # [ba_runner.WindowSolve]: every window solve collected past the cost gate
+    graph_solves: list  # [loop_closure.GraphSolve]: every pose-graph solve, accepted or rejected
+    rounds: list  # [loop_closure.VerificationRound]: every verification round read
+    kf_frame_idx: np.ndarray  # [K] int64, corrected_keyframes()
+    kf_poses: np.ndarray  # [K, 4, 4] float32
+    # The ledger's writes in the order the worker made them: ("keyframe", frame index) as a keyframe
+    # enters it, ("window", i) as window_solves[i] is collected (whatever its verdict), ("graph", i)
+    # as graph_solves[i] is made (accepted ones are propagated over the ledger there).
+    order: list
 
 
 class _KeyframeJob:
@@ -220,6 +246,7 @@ class RefinerWorker:
         # their nearest surviving neighbor instead of keeping stale poses.
         self._kf_chain: dict[int, np.ndarray] = {}
         self._kf_order: list[int] = []
+        self._order: list[tuple[str, int]] = []  # RefineLog.order
         # Cumulative rigid correction mapping live-chain poses into the
         # worker's corrected frame (worker-thread only; no lock needed).
         self._D = np.eye(4, dtype=np.float64)
@@ -364,11 +391,35 @@ class RefinerWorker:
             )
         return idxs, poses
 
+    def refine_log(self) -> RefineLog:
+        """The records of the run so far (module docstring); call after ``close``."""
+        kf_idx, kf_poses = self.corrected_keyframes()
+        return RefineLog(
+            window_solves=list(self.wba.records) if self.wba is not None else [],
+            graph_solves=list(self.lclo.graph_solves) if self.lclo is not None else [],
+            rounds=list(self.lclo.rounds) if self.lclo is not None else [],
+            kf_frame_idx=kf_idx,
+            kf_poses=kf_poses,
+            order=list(self._order),
+        )
+
+    def _collected(self, drain: bool = False) -> list:
+        """``wba.collect``'s accepted solves; the solves it recorded go into ``_order``."""
+        n0 = len(self.wba.records)
+        out = self.wba.collect(drain=drain)
+        self._order += [("window", i) for i in range(n0, len(self.wba.records))]
+        return out
+
+    def _graphs_since(self, n0: int) -> None:
+        """The loop closer's graph solves from the ``n0``-th on go into ``_order``."""
+        self._order += [("graph", i) for i in range(n0, len(self.lclo.graph_solves))]
+
     @property
     def stats(self) -> dict:
         s = dict(loops_closed=self._loops_closed, ba_solves=self._ba_solves)
         if self.wba is not None:
             s["ba_rejected"] = self.wba.n_rejected
+            s["records_window"] = len(self.wba.records)
             if self.wba.n_active:  # solver-capacity telemetry (VERDICT r5 item 3)
                 act = sorted(self.wba.n_active)
                 cand = sorted(self.wba.n_candidate)
@@ -380,6 +431,8 @@ class RefinerWorker:
             s["decimations"] = self.lclo.decimations
             ev = self.lclo.disc_events  # bounded ring of the latest events
             s["lc_verified"] = self.lclo.n_verified
+            s["records_graph"] = len(self.lclo.graph_solves)
+            s["records_rounds"] = len(self.lclo.rounds)
             if ev:  # gate-decision telemetry: what discrepancies were seen
                 discs = sorted(e[1] for e in ev)
                 s["lc_disc_max_m"] = discs[-1]
@@ -475,7 +528,7 @@ class RefinerWorker:
             p["ba_ring_present"] = np.asarray([st is not None for st in slots], bool)
             p["ba_next"] = np.asarray(self.associator._next, np.int64)
             p["ba_rejected"] = np.asarray(w.n_rejected, np.int64)
-            for j, (copy, kf_idxs) in enumerate(w._pending):
+            for j, (copy, kf_idxs, *_) in enumerate(w._pending):
                 res = BAResult(*copy.numpy())
                 p[f"ba_pend{j}_T"] = res.T_c2w
                 p[f"ba_pend{j}_cost"] = res.cost
@@ -604,14 +657,16 @@ class RefinerWorker:
         end-of-run closure into the ledger."""
         self._await_launch()
         if self.wba is not None:
-            for kf_idxs, T_new in self.wba.collect(drain=True):
+            for kf_idxs, T_new in self._collected(drain=True):
                 self._ba_solves += 1
                 with self._lock:
                     for k, fi in enumerate(kf_idxs):
                         self._kf_corrected[fi] = T_new[k].copy()
         if self.lclo is None:
             return
+        n0 = len(self.lclo.graph_solves)
         res = self.lclo.flush()
+        self._graphs_since(n0)
         if res is None:
             return
         self._loops_closed += 1
@@ -693,11 +748,13 @@ class RefinerWorker:
                 self._kf_corrected[job.frame_idx] = pose
                 self._kf_chain[job.frame_idx] = pose
                 self._kf_order.append(job.frame_idx)
+                self._order.append(("keyframe", job.frame_idx))
 
         if self.lclo is not None:
             from ..slam.loop_closure import ArchivedKeyframe
 
             with span("vo_tpu_torch.refiner.loop_closure", total=self._phase_s):
+                n0 = len(self.lclo.graph_solves)
                 res = self.lclo.add_keyframe(
                     ArchivedKeyframe(
                         frame_idx=job.frame_idx,
@@ -713,6 +770,7 @@ class RefinerWorker:
                     ),
                     query_dev=job.query,
                 )
+                self._graphs_since(n0)
             if res is not None:
                 self._loops_closed += 1
                 surv = {akf.frame_idx: akf.pose_c2w.copy() for akf in self.lclo.keyframes}
@@ -758,7 +816,7 @@ class RefinerWorker:
             # reading at dispatch measured ~120 ms of queue wait per solve,
             # ba_runner.dispatch docstring).
             with span("vo_tpu_torch.refiner.ba_collect", total=self._phase_s):
-                for kf_idxs, T_new in self.wba.collect():
+                for kf_idxs, T_new in self._collected():
                     self._ba_solves += 1
                     with self._lock:
                         for k, fi in enumerate(kf_idxs):

@@ -70,6 +70,12 @@ around ``HOST_COPY``, then ``READBACK``), each carrying its frame index, and
 its steps write stage stamps on the device (odometry.pipeline) into a ring
 read once after the loop: ``RunResult.trace``. ``RunResult.capture_s`` and
 ``readback_s`` are host clocks of every call.
+
+What a call returns (``RunResult``): the frame loop's own rows as
+``step_poses`` / ``step_rel_poses``; ``poses`` / ``rel_poses``, which are the
+same arrays on the plain path and, on the refined path, those rows
+re-anchored onto the refiner's corrected keyframes; and on the refined path
+the refiner's records (``refine_log``, odometry.refiner.RefineLog).
 """
 from __future__ import annotations
 
@@ -114,7 +120,7 @@ READBACK = "vo_tpu_torch.readback"  # the final synchronise, the reads, the refi
 
 @dataclasses.dataclass
 class RunResult:
-    poses: np.ndarray  # [T, 4, 4] world poses (frames 2..N like all_poses, VO.m:133)
+    poses: np.ndarray  # [T, 4, 4] world poses (frames 2..N like all_poses, VO.m:133); refined: re-anchored
     rel_poses: np.ndarray  # [T, 4, 4]
     n_inliers: np.ndarray  # [T]
     n_tracks: np.ndarray  # [T]
@@ -126,6 +132,19 @@ class RunResult:
     capture_s: float = 0.0  # host seconds from the call's entry to its frame loop (CAPTURE)
     readback_s: float = 0.0  # host seconds from the loop's end to the return (READBACK)
     trace: Optional[Trace] = None  # the call's spans and stage stamps while the tracer was on
+    # The frame loop's rows before re-anchoring (run_sequence always gives them). A default factory
+    # leaves no class attribute, so a deleted field reads as missing, as on a program without it.
+    step_poses: Optional[np.ndarray] = dataclasses.field(default_factory=lambda: None)
+    step_rel_poses: Optional[np.ndarray] = dataclasses.field(default_factory=lambda: None)
+    refine_log: Optional[object] = None  # refined path: odometry.refiner.RefineLog, host arrays only
+
+
+def step_group(cfg: PipelineConfig, *, deferred: bool, refined: bool, meshed: bool) -> int:
+    """Frames a step of ``run_sequence`` takes (and detects together): ``cfg.fused_group`` on the
+    deferred path, one where a per-frame host consumer takes the run off it (not ``deferred``),
+    on the refined path (keyframes are handed over at exact frame boundaries) and under a mesh
+    (its data axis shards one stereo pair). A tail shorter than a group steps frame by frame."""
+    return cfg.fused_group if deferred and not refined and not meshed else 1
 
 
 def to_device(img, device) -> torch.Tensor:
@@ -383,10 +402,7 @@ def run_sequence(
         # (the worker owns its host copies); progress / metrics / checkpoints need
         # per-frame host values.
         deferred = not (progress is not None or metrics_path is not None or checkpointing)
-        # The refined path steps frame by frame: keyframe submission needs
-        # state.prev at exact keyframe boundaries.
-        # A mesh steps frame by frame too: its data axis shards ONE stereo pair.
-        group = cfg.fused_group if deferred and not refined and mesh is None else 1
+        group = step_group(cfg, deferred=deferred, refined=refined, meshed=mesh is not None)
 
         # With the tracer on, the steps write stage stamps into a ring of a row per step (pipeline).
         stamps = StageStamps(n, len(stage_columns(group)), device) if tracer is not None else None
@@ -569,6 +585,7 @@ def run_sequence(
         rows = hist.stacked()
         poses, rels = rows["pose_c2w"], rows["rel_pose"]
         refine_stats: dict = {}
+        refine_log = None
         if refiner is not None:
             refiner.close()
             refine_stats = dict(refiner.stats)
@@ -581,6 +598,7 @@ def run_sequence(
                 poses = reanchor_trajectory(poses, kf_rows[keep], kf_poses[keep])
                 rels = rebuild_rel_poses(poses)
             refine_stats["n_keyframes"] = int(kf_idx.size)
+            refine_log = refiner.refine_log()
 
         if lmap is not None:
             lms = lmap.xyz[: int(lmap.count)].cpu().numpy()
@@ -597,6 +615,9 @@ def run_sequence(
             frames_per_sec=n_run / wall if wall > 0 else float("nan"),
             per_frame_ms=1000.0 * wall / max(n_run, 1),
             refine_stats=refine_stats,
+            step_poses=rows["pose_c2w"],
+            step_rel_poses=rows["rel_pose"],
+            refine_log=refine_log,
         )
         if stamps is not None:
             stamps.read()

@@ -27,12 +27,20 @@ round; ``_dispatch_verify`` also takes the per-candidate triples (eager
 rounds only), so that tests can inject the reference's draws. The host logic (candidates, gates, decimation, the graph
 solve) is the reference's numpy code, copied because the reference module
 imports jax.
+
+The closer keeps a record of its work as host arrays: every pose-graph solve
+(``graph_solves``, ``GraphSolve``: nodes, edges, weights, result or rejection)
+and every verification round it reads (``rounds``, ``VerificationRound``: the
+query, the candidates, the generator's state before the round, and per
+candidate the counts and the verdict). The generator's state is a host read;
+nothing is copied from the device for them. A round restored from a
+checkpoint has no generator state and is not recorded.
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -51,7 +59,33 @@ from ..utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["LoopConfig", "ArchivedKeyframe", "LoopCloser"]  # LoopConfig lives in config
+__all__ = ["LoopConfig", "ArchivedKeyframe", "LoopCloser", "GraphSolve", "VerificationRound"]  # LoopConfig lives in config
+
+
+class GraphSolve(NamedTuple):
+    """One pose-graph solve (``LoopCloser._solve_graph``), as host arrays."""
+
+    frame_idx: np.ndarray  # [n] int64, the archived keyframes that are the graph's nodes
+    T0: np.ndarray  # [n, 4, 4] float64, the nodes' poses before the solve
+    edge_i: np.ndarray  # [E] int64: n - 1 odometry edges (k, k + 1), then the loop edges
+    edge_j: np.ndarray  # [E] int64
+    edge_T: np.ndarray  # [E, 4, 4] float64, the measured T_i^-1 T_j
+    edge_weight: np.ndarray  # [E] float64
+    T: Optional[np.ndarray]  # [n, 4, 4] float64 as returned; None where the solve was rejected
+    cost0: float
+    cost: float
+
+
+class VerificationRound(NamedTuple):
+    """One verification round, read one keyframe after its dispatch, as host arrays."""
+
+    query: int  # frame index of the keyframe verified
+    candidates: np.ndarray  # [n] int64 frame indices in the round's order (the round pads them with the first)
+    gen_state: np.ndarray  # uint8, the RANSAC generator's state before the round
+    ok: np.ndarray  # [n] bool, RANSAC's own success flag
+    n_inliers: np.ndarray  # [n] int64
+    n_matches: np.ndarray  # [n] int64, depth-gated matches
+    verdict: np.ndarray  # [n] bool: matches and inliers >= min_inliers and ok
 
 
 @dataclasses.dataclass
@@ -113,6 +147,9 @@ class LoopCloser:
         # In-flight verification round: (verified_frame_idx, [cand frame_idx],
         # HostCopy of the outputs). Dispatched at keyframe t, collected at t+1.
         self._pending = None
+        self._pending_gen: Optional[np.ndarray] = None  # the generator's state before that round
+        self.graph_solves: list[GraphSolve] = []
+        self.rounds: list[VerificationRound] = []
         # Wall-clock per phase (candidates / dispatch / collect / solve), spans
         # vo_tpu_torch.refiner.lc.<phase>, exported through refiner stats as worker_lc_<phase>_s.
         self.phase_s: dict[str, float] = {}
@@ -311,6 +348,7 @@ class LoopCloser:
         # bounds the device dispatches without losing recall.
         self._cooldown_left = max(self._cooldown_left, self.cfg.verify_cooldown)
         with span("vo_tpu_torch.refiner.lc.dispatch", total=self.phase_s):
+            self._pending_gen = self._gen.get_state().numpy()
             outs = self._dispatch_verify([self.keyframes[k] for k in cand_idx], kf, query_dev=query_dev)
         self._pending = (
             kf.frame_idx,
@@ -330,7 +368,7 @@ class LoopCloser:
         if self._pending is None:
             return None
         ver_fi, cand_fis, outs = self._pending
-        self._pending = None
+        gen_state, self._pending, self._pending_gen = self._pending_gen, None, None
         by_fi = {k.frame_idx: i for i, k in enumerate(self.keyframes)}
         if ver_fi not in by_fi:
             return None  # verified keyframe was decimated away
@@ -338,6 +376,16 @@ class LoopCloser:
         kf = self.keyframes[cur_k]
         with span("vo_tpu_torch.refiner.lc.collect", total=self.phase_s):
             Zs = self._collect_verify(outs, len(cand_fis), self.cfg.min_inliers)
+            if gen_state is not None:
+                n = len(cand_fis)
+                ok, n_inl, _, n_m = outs.numpy()
+                self.rounds.append(
+                    VerificationRound(
+                        query=int(ver_fi), candidates=np.asarray(cand_fis, np.int64), gen_state=gen_state,
+                        ok=np.asarray(ok[:n], bool), n_inliers=np.asarray(n_inl[:n], np.int64),
+                        n_matches=np.asarray(n_m[:n], np.int64), verdict=np.array([Z is not None for Z in Zs]),
+                    )
+                )
         for cf, Z in zip(cand_fis, Zs):
             if Z is None or cf not in by_fi:
                 continue
@@ -482,15 +530,16 @@ class LoopCloser:
             ej.append(b)
             eT.append(np.asarray(Z, np.float64))
             ew.append(self.cfg.loop_weight)
-        T, cost0, cost = pg.optimize_np(
-            T0,
-            np.asarray(ei, np.int64),
-            np.asarray(ej, np.int64),
-            np.stack(eT),
-            np.asarray(ew, np.float64),
-            iters=self.cfg.graph_iters,
+        edges = (np.asarray(ei, np.int64), np.asarray(ej, np.int64), np.stack(eT), np.asarray(ew, np.float64))
+        T, cost0, cost = pg.optimize_np(T0, *edges, iters=self.cfg.graph_iters)
+        rejected = not np.isfinite(cost) or cost > cost0
+        self.graph_solves.append(
+            GraphSolve(
+                np.asarray([kf.frame_idx for kf in self.keyframes], np.int64), T0, *edges,
+                None if rejected else T, float(cost0), float(cost),
+            )
         )
-        if not np.isfinite(cost) or cost > cost0:
+        if rejected:
             return None
         T = T.astype(np.float32)
         for k, kf in enumerate(self.keyframes):
