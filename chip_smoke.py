@@ -42,7 +42,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      (the clear before each launch as above, median of 25) beside the plain
      version's, eager and as a replayed CUDA graph, and beside the latency floor
      that bounds it: a one-thread launch (the tracer's stage stamp) timed the
-     same way;
+     same way. Then K4 (gauss_blur, the detector's separable blurs) against the
+     band products on the card at every detection batch (1, 2, 4 images): the
+     whole pyramid, each octave's levels and DoG from the same base, and the
+     bin-map rows of every level from the same maps, within 2e-7 (the largest
+     difference and the count of values that differ printed); at 4 images the
+     detection call's blurs (the base, one launch per octave, the map rows:
+     2 + octaves launches) timed as K1 and K2 are, beside their bound (bytes:
+     each source sample read once, every level, DoG and map row written once;
+     two operations a tap) and the band products' time;
   4. the plain-VO main path, odometry.runner.run_sequence, over the 30-frame
      synthetic KITTI-00 feed at the default PipelineConfig: one warm run, then
      a timed run with the kernels' launch counters reset just before it. Fails
@@ -191,8 +199,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      candidates equal), ``make_jitted_step`` captured and eager frame by frame
      (track ids and poses), and phase 7's graphed resumes 0.0 m from the
      uninterrupted graphed runs. Then one replay of the group step: it must
-     account one launch of each kernel in ``kernels.LAUNCHES``, and in its
-     profiler trace K1 and K2 must have been launched by ``cudaGraphLaunch``;
+     account one launch of K1 and K2, one of K3 a frame and one detection
+     call's of K4 in ``kernels.LAUNCHES``, and in the profiler trace of two
+     more replays K1-K4 must have been launched by ``cudaGraphLaunch``;
      it prints the solver kernels of RANSAC's 6x6 solve, the seconds of the
      first call of each step (warm-up, capture, instantiation, one replay) and
      the bytes of the graph pools; then, for a refiner and keyframe
@@ -213,7 +222,8 @@ the plain version over the four octaves, ``bound_ms`` / ``bound_by`` /
 ``share_of_bound`` (bound over ``ms``), ``launches_per_detect_call`` counted
 over one detect_and_describe, and ``library_ms`` null: no single PyTorch call
 computes either function; K3's row has its own fields (``ms``, ``back_to_back_ms``,
-``plain_ms``, ``plain_graph_ms``, ``floor_ms``, the bounds, ``launches``). The last line
+``plain_ms``, ``plain_graph_ms``, ``floor_ms``, the bounds, ``launches``), and so has K4's
+(``ms``, ``pyramid_ms``, ``map_rows_ms``, ``plain_ms`` the band products, ``differ_by_batch``). The last line
 is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -243,6 +253,7 @@ from vo_tpu_torch.dist import ba_sharded, frontend_batch, pose_graph_sharded, ra
 from vo_tpu_torch.dist import mesh as mesh_mod
 from vo_tpu_torch.eval import metrics
 from vo_tpu_torch.frontend import kernels
+from vo_tpu_torch.frontend import dense_desc, pyramid
 from vo_tpu_torch.frontend.pyramid import build_pyramid
 from vo_tpu_torch.frontend.sift import detect_and_describe
 from vo_tpu_torch.frontend.track import stereo_features_with_matches
@@ -316,6 +327,8 @@ KERNELS = {
     "bin_maps": dict(source="vo_tpu_torch/csrc/bin_maps.cu", replaces="vo_tpu/frontend/pallas_kernels.py:213"),
 }
 K3 = "pose_refine"  # csrc/pose_refine.cu, one launch per frame a step processes; replaces no TPU kernel
+K4 = "gauss_blur"  # csrc/gauss_blur.cu, 2 + n_octaves launches per fast detection call; replaces no TPU kernel
+K4_TOL = 2e-7  # tests/test_torch_gauss_blur.py: K4 against the card's band products
 
 
 def median_ms(fn, reps: int = REPS) -> float:
@@ -485,6 +498,131 @@ def check_kernels(feed: runner.StagedSequence, cfg: PipelineConfig) -> dict:
                     f"{name}: {kernels.LAUNCHES[name]} launches in one detection call on {batch.shape[0]} images, expected 1"
                 )
     return stats
+
+
+def k4_launches(cfg: PipelineConfig, fast: bool = True) -> int:
+    """K4's launches in one detection call: the base blur, one per octave, and on the fast path the map rows."""
+    return 1 + cfg.sift.n_octaves + int(fast)
+
+
+def k4_against_band_products(imgs: torch.Tensor, cfg: PipelineConfig) -> dict:
+    """K4 against the band products on the card, launch by launch from the same inputs (the base blur, each
+    octave's levels and DoG, the map rows of every level) and along the whole pyramid -> {part: (max
+    |difference|, values that differ, the band products' own spread)}. The spread is how far cuBLAS's
+    product of the same inputs moves when the batch is doubled (it picks its GEMM, and so its order of
+    summation, by shape): where it exceeds K4_TOL it is the bound. The whole pyramid compounds it, and is
+    reported only."""
+    s = cfg.sift
+    sig = pyramid.sigma_schedule(s)[0]
+    plain_cfg = dataclasses.replace(s, use_pallas=False)
+    base_k = pyramid.gaussian_kernel_1d(float(np.sqrt(max(s.sigma0**2 - 0.25, 0.01))))
+    levels_k = pyramid._level_kernels(sig)
+    B = imgs.shape[0]
+
+    def doubled(fn, x):
+        return fn(torch.cat([x, x]))[:B]
+
+    pyr, want = build_pyramid(imgs, s), build_pyramid(imgs, plain_cfg)
+    parts = {}
+    cur = pyramid.blur_separable(imgs, base_k)
+    parts["base"] = (pyramid.gauss_stack(imgs, (base_k,), decimate=False, dog=False)[0][:, 0], cur,
+                     doubled(lambda x: pyramid.blur_separable(x, base_k), imgs))
+    for o in range(s.n_octaves):
+        src = cur if o == 0 else pyr.gauss[o - 1][:, s.scales_per_octave]
+        band = pyramid._blur_stack_from_base(src, sig, decimate=o > 0)
+        band2 = doubled(lambda x: pyramid._blur_stack_from_base(x, sig, decimate=o > 0), src)
+        G, D = pyramid.gauss_stack(src, levels_k, decimate=o > 0, dog=True)
+        parts[f"octave {o}"] = (G, band, band2)
+        parts[f"dog {o}"] = (D, band[:, 1:] - band[:, :-1], band2[:, 1:] - band2[:, :-1])
+        parts[f"pyramid gauss {o}"] = (pyr.gauss[o], want.gauss[o], None)
+        parts[f"pyramid dog {o}"] = (pyr.dog[o], want.dog[o], None)
+    raws = kernels.bin_maps_octaves([G[:, 1 : s.scales_per_octave + 1] for G in pyr.gauss])
+    sig_maps = sig[1 : s.scales_per_octave + 1]
+    raws2 = [torch.cat([r, r]) for r in raws]
+    parts["map rows"] = (dense_desc.bin_map_rows(raws, sig_maps), dense_desc.bin_map_rows(raws, sig_maps, use_pallas=False),
+                         dense_desc.bin_map_rows(raws2, sig_maps, use_pallas=False)[:B])
+    torch.cuda.synchronize()
+    return {k: (float((a - b).abs().max()), int((a != b).sum()), None if c is None else float((b - c).abs().max()))
+            for k, (a, b, c) in parts.items()}
+
+
+def time_gauss_blur(imgs: torch.Tensor, cfg: PipelineConfig) -> dict:
+    """The detection call's blurs through K4 (the base, one launch per octave, the map rows) and through
+    the band products, each replayed as a CUDA graph with cold inputs, beside K4's bound."""
+    s = cfg.sift
+    pyr = build_pyramid(imgs, s)
+    raws = kernels.bin_maps_octaves([G[:, 1 : s.scales_per_octave + 1] for G in pyr.gauss])
+    sig = pyramid.sigma_schedule(s)[0]
+    sig_maps = sig[1 : s.scales_per_octave + 1]
+    plain_cfg = dataclasses.replace(s, use_pallas=False)
+
+    def call():
+        return build_pyramid(imgs, s), dense_desc.bin_map_rows(raws, sig_maps)
+
+    def plain():
+        return build_pyramid(imgs, plain_cfg), dense_desc.bin_map_rows(raws, sig_maps, use_pallas=False)
+
+    # Bytes: every source sample read once (the image, each octave's base samples, the pooled maps), every
+    # level, DoG plane and map row written once (the base blur's output too: octave 0 reads it). Operations:
+    # a multiply and an add per tap of each pass, one subtraction per DoG value.
+    B, (H, W) = imgs.shape[0], imgs.shape[1:]
+    L = len(pyramid._level_kernels(sig))
+    base_t = 2 * pyramid.tap_table(pyramid.gaussian_kernel_1d(float(np.sqrt(max(s.sigma0**2 - 0.25, 0.01)))))[0] + 1
+    level_t = sum(2 * pyramid.tap_table(k)[0] + 1 for k in pyramid._level_kernels(sig))
+    map_t = sum(2 * pyramid.tap_table(dense_desc._map_kernel(float(x)))[0] + 1 for x in sig_maps)
+    px = [G.shape[2] * G.shape[3] for G in pyr.gauss]
+    pooled = [r.shape[3] * r.shape[4] for r in raws]
+    n_bytes = 4 * B * (2 * H * W + sum(p * (1 + L + L - 1) for p in px) + 2 * kernels.NB * len(sig_maps) * sum(pooled))
+    n_flop = B * (4 * base_t * H * W + sum(p * (4 * level_t + L - 1) for p in px) + 4 * kernels.NB * map_t * sum(pooled))
+    st = bound(n_bytes, n_flop)
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=imgs.device)
+    def graphed(fn):  # the device work alone, as the step's graphs run it: the host enqueues slower
+        return graphs.capture(fn, imgs.device).replay
+
+    replay = graphed(call)
+    st["back_to_back_ms"] = back_to_back_ms(replay)
+    st["ms"] = cold_ms(replay, flush)
+    st["pyramid_ms"] = cold_ms(graphed(lambda: build_pyramid(imgs, s)), flush)
+    st["map_rows_ms"] = cold_ms(graphed(lambda: dense_desc.bin_map_rows(raws, sig_maps)), flush)
+    st["plain_ms"] = cold_ms(graphed(plain), flush)
+    st["share_of_bound"] = st["bound_ms"] / st["ms"]
+    del flush
+    return st
+
+
+def check_gauss_blur(feed: runner.StagedSequence, cfg: PipelineConfig) -> dict:
+    """Phase 3, K4: the blurs against the band products at every detection batch, then at 4 images the
+    detection call's blurs timed beside their bound and the band products."""
+    s = cfg.sift
+    pair = torch.stack(list(feed.frame(0))).float() / 255.0
+    imgs = torch.stack([im for i in range(cfg.fused_group) for im in feed.frame(i)]).float() / 255.0
+    st: dict = {"max_abs_err_by_batch": {}, "differ_by_batch": {}}
+    for batch in (pair[:1], pair, imgs):
+        found = k4_against_band_products(batch, cfg)
+        err = max(v[0] for v in found.values() if v[2] is not None)
+        st["max_abs_err_by_batch"][str(batch.shape[0])] = err
+        st["differ_by_batch"][str(batch.shape[0])] = {k: v[:2] for k, v in found.items()}
+        print(f"  {K4}, {batch.shape[0]} image(s), against the band products (max |difference|, values that differ, "
+              f"the band products' own spread): " + ", ".join(f"{k} {v[0]:.3e} {v[1]} {v[2]}" for k, v in found.items()))
+        over = {k: v for k, v in found.items() if v[2] is not None and v[0] > max(K4_TOL, v[2])}
+        if over:
+            raise AssertionError(f"K4 {K4} exceeds {K4_TOL} (or the band products' own spread) at batch {batch.shape[0]}: {over}")
+    st["max_abs_err"] = max(st["max_abs_err_by_batch"].values())
+
+    st.update(time_gauss_blur(imgs, cfg))
+    kernels.reset_launches()
+    detect_and_describe(imgs, s)
+    st["launches_per_detect_call"] = kernels.LAUNCHES[K4]
+    if kernels.LAUNCHES[K4] != k4_launches(cfg):
+        raise AssertionError(f"{K4}: {kernels.LAUNCHES[K4]} launches in one detection call, expected {k4_launches(cfg)}")
+    print(
+        f"  {K4}, the detection call's blurs ({imgs.shape[0]} images, {s.n_octaves} octaves, {k4_launches(cfg)} launches): "
+        f"{st['ms']:.4f} ms cold as a replayed graph (pyramid {st['pyramid_ms']:.4f} ms, map rows {st['map_rows_ms']:.4f} "
+        f"ms), {st['back_to_back_ms']:.4f} ms back to back; the band products {st['plain_ms']:.4f} ms; bound "
+        f"{st['bound_ms']:.4f} ms by {st['bound_by']} ({st['bytes'] / 1e6:.1f} MB, {st['flop'] / 1e6:.0f} Mflop), "
+        f"share of bound {st['share_of_bound']:.3f}"
+    )
+    return st
 
 
 def pose_gaps(a: torch.Tensor, b: torch.Tensor) -> tuple:
@@ -832,7 +970,7 @@ def host_paths(feed, cfg: PipelineConfig, device, grouped: runner.RunResult, tmp
     # One detection call per group replayed, one in the eager warm-up run that precedes the capture, and one in
     # the replay of the runner's warm-up call.
     calls = n_dev // cfg.fused_group + 2
-    if log.hand_written != {**{k: calls for k in KERNELS}, K3: calls * cfg.fused_group} or not log.device_launches or not np.isfinite(checked.poses).all():
+    if log.hand_written != {**{k: calls for k in KERNELS}, K3: calls * cfg.fused_group, K4: calls * k4_launches(cfg)} or not log.device_launches or not np.isfinite(checked.poses).all():
         raise AssertionError(f"compile_logging counted {log.hand_written} and {log.device_launches} launches in {n_dev} frames")
     if not refused:
         raise AssertionError("a graphed run under nan_debug did not raise the ValueError that names graph=False")
@@ -860,8 +998,9 @@ def exact_sift(feed, cfg: PipelineConfig, device, gt, fast_fps: float, launches_
     one = dict(n_orientations=1)
     exact1 = dataclasses.replace(cfg.sift, fast_descriptor=False, **one)
     fe = counted(launches_by_path, "exact_detect_call", lambda: detect_and_describe(imgs, exact1))
-    if launches_by_path["exact_detect_call"] != {"extrema_scores": 1, "bin_maps": 0, K3: 0}:
-        raise AssertionError(f"exact detection call launched {launches_by_path['exact_detect_call']}, expected K1 once, K2 never")
+    if launches_by_path["exact_detect_call"] != {"extrema_scores": 1, "bin_maps": 0, K3: 0, K4: k4_launches(cfg, fast=False)}:
+        raise AssertionError(f"exact detection call launched {launches_by_path['exact_detect_call']}, expected K1 once, K2 "
+                             f"never, K4 for the pyramid alone")
     fa = detect_and_describe(imgs, dataclasses.replace(cfg.sift, **one))
     if not torch.equal(fa.mask, fe.mask):
         raise AssertionError("exact and fast paths select different keypoints")
@@ -1409,7 +1548,7 @@ def bench_surface(feed5, cfg: PipelineConfig, device, ate4: float, launches_by_p
         vals = [stages[f"{st}_{k}"] for k in ("ms", "device_ms", "busy_ms")]
         if not (all(v is not None and np.isfinite(v) for v in vals) and stages[f"{st}_launches"] > 0):
             raise AssertionError(f"stage {st}: {[(k, v) for k, v in stages.items() if k.startswith(st)]}")
-    if min(la[k] for k in KERNELS) <= 0:
+    if min(la[k] for k in (*KERNELS, K4)) <= 0:
         raise AssertionError(f"the bench did not launch both kernels: {la}")
 
     t = time.perf_counter()
@@ -1483,7 +1622,7 @@ def reference_scale_tools(feed5, cfg: PipelineConfig, device, launches_by_path: 
         raise AssertionError(f"capacity {small.loop.max_keyframes} > min_gap {small.loop.min_gap}: loops could close here")
     if lc["lc_verified"] != 0 or lc["loops_closed"] != 0 or not abs(lc["ate_rmse_m"] - vo["ate_rmse_m"]) <= REFINED_ATE_SLACK_M:
         raise AssertionError(f"vo_lc verified or closed a loop with no candidate possible, or left vo: {lc}")
-    if min(launches_by_path["bigrun"][k] for k in KERNELS) <= 0:
+    if min(launches_by_path["bigrun"][k] for k in (*KERNELS, K4)) <= 0:
         raise AssertionError(f"run_configs did not launch both kernels: {launches_by_path['bigrun']}")
 
     # The decimating vo_lc run again with graph=False: bit for bit, keyframes and decimations too.
@@ -1616,22 +1755,24 @@ def graphed_against_eager(feed, feed5, cfg: PipelineConfig, device, plain: runne
     capture_single_s = time.perf_counter() - t_cap
     pools_bytes = graphs.pools_bytes()
     r = counted(launches_by_path, "one_replay", lambda: stepN(r[0], r[1], *frames))
-    if launches_by_path["one_replay"] != {**{k: 1 for k in KERNELS}, K3: cfg.fused_group}:
+    if launches_by_path["one_replay"] != {**{k: 1 for k in KERNELS}, K3: cfg.fused_group, K4: k4_launches(cfg)}:
         raise AssertionError(f"one replay of the group step accounted {launches_by_path['one_replay']}, expected one launch "
-                             f"of K1 and K2 and one of K3 a frame")
+                             f"of K1 and K2, one of K3 a frame and one detection call's of K4")
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    # Two replays: the trace of a single profiled replay lacked the step's first kernels (the pyramid's).
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        stepN(r[0], r[1], *frames)
+        for _ in range(2):
+            stepN(r[0], r[1], *frames)
         torch.cuda.synchronize()
     trace = os.path.join(tmp, "one_replay.json")
     prof.export_chrome_trace(trace)
     by = launched_by(trace)
-    hand = {name: sorted(v) for name, v in by.items()
-            if any(k in name for k in ("extrema_scores_kernel", "bin_maps_kernel", "pose_refine_kernel"))}
-    if len(hand) != 3 or any(v != ["cudaGraphLaunch"] for v in hand.values()):
-        raise AssertionError(f"K1, K2 and K3 were not launched by cudaGraphLaunch in a replay: {hand}")
+    families = ("extrema_scores_kernel", "bin_maps_kernel", "pose_refine_kernel", "gauss_stack_kernel", "gauss_rows_kernel")
+    hand = {name: sorted(v) for name, v in by.items() if any(k in name for k in families)}
+    if any(not any(k in n for n in hand) for k in families) or any(v != ["cudaGraphLaunch"] for v in hand.values()):
+        raise AssertionError(f"K1, K2, K3 and K4 were not launched by cudaGraphLaunch in a replay: {hand}")
     solver = sorted({n[:80] for n in by if any(k in n.lower() for k in ("getrf", "getrs", "magma", "trsm", "cusolver"))})
     n_kernels = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
     print(
@@ -1644,7 +1785,7 @@ def graphed_against_eager(feed, feed5, cfg: PipelineConfig, device, plain: runne
         f"{plain.per_frame_ms:.3f} and {refined.per_frame_ms:.3f}"
     )
     print(
-        f"     one replay of the group step: {n_kernels} device events, K1, K2 and K3 launched by {hand}, the "
+        f"     two replays of the group step: {n_kernels} device events, K1, K2, K3 and K4 launched by {hand}; one "
         f"replay accounted {launches_by_path['one_replay']}; the 6x6 solve's kernels {solver}; first call (warm-up "
         f"+ capture + instantiate + replay) {capture_group_s:.3f} s for the group step, {capture_single_s:.3f} s for "
         f"the single-frame step; graph pools {pools_bytes} bytes"
@@ -1724,6 +1865,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     stats = check_kernels(feed, cfg)
     k3 = check_pose_refine(cfg, device)
+    k4 = check_gauss_blur(feed, cfg)
 
     launches_by_path: dict = {}
     warm = runner.run_sequence(feed, cfg, n_frames=N_FRAMES, device=device)  # warm run
@@ -1804,6 +1946,15 @@ def main() -> int:
         **{k: k3[k] for k in ("n", "iters", "pose_gap_m", "pose_gap_rad", "inliers_differ", "mean_err_gap", "ms",
                               "back_to_back_ms", "plain_ms", "plain_graph_ms", "floor_ms", "floor_share", "bound_ms",
                               "bound_by")},
+        library_ms=None,
+    ))
+    summary.append(dict(
+        name=K4, route="cuda", source="vo_tpu_torch/csrc/gauss_blur.cu", replaces=None,
+        launches=sum(v[K4] for v in launches_by_path.values()),
+        launches_by_path={path: v[K4] for path, v in launches_by_path.items()},
+        **{k: k4[k] for k in ("launches_per_detect_call", "max_abs_err", "max_abs_err_by_batch", "differ_by_batch", "ms",
+                              "pyramid_ms", "map_rows_ms", "back_to_back_ms", "plain_ms", "bound_ms", "bound_by",
+                              "share_of_bound")},
         library_ms=None,
     ))
     print(f"chip_smoke took {time.perf_counter() - t_script:.1f} s")

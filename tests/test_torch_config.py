@@ -339,7 +339,7 @@ def test_debug_utils():
     with debug.compile_logging() as log:
         kernels.LAUNCHES["extrema_scores"] += 2  # as two launches inside the block would
     kernels.LAUNCHES["extrema_scores"] -= 2
-    assert log.hand_written == {"extrema_scores": 2, "bin_maps": 0, "pose_refine": 0}
+    assert log.hand_written == {"extrema_scores": 2, "bin_maps": 0, "pose_refine": 0, "gauss_blur": 0}
     assert log.per_frame(2)["extrema_scores_per_frame"] == 1.0
     assert log.device_launches is None or log.device_launches >= 0  # traced only where there is a card
     x = torch.arange(4.0)

@@ -274,7 +274,7 @@ def test_replay_adds_the_captured_launches():
         assert g.replays == 2
         assert kernels.LAUNCHES == {
             "extrema_scores": before["extrema_scores"] + 2, "bin_maps": before["bin_maps"] + 4,
-            "pose_refine": before["pose_refine"],
+            "pose_refine": before["pose_refine"], "gauss_blur": before["gauss_blur"],
         }
     finally:
         kernels.LAUNCHES.update(before)

@@ -196,5 +196,5 @@ def test_exact_path_uses_plain_k1_and_never_k2(frames, monkeypatch):
     kernels.reset_launches()
     f = p_sift.detect_and_describe(torch.from_numpy(frames), cfg)
     assert calls == {"k1_plain": 3, "k2": 0}  # one plain K1 per octave on a CPU tensor
-    assert kernels.LAUNCHES == {"extrema_scores": 0, "bin_maps": 0, "pose_refine": 0}  # nothing was launched on the CPU
+    assert kernels.LAUNCHES == {"extrema_scores": 0, "bin_maps": 0, "pose_refine": 0, "gauss_blur": 0}  # nothing was launched on the CPU
     assert int(f.mask.sum()) > 100 and torch.isfinite(f.desc).all()

@@ -114,11 +114,12 @@ EAGER_TRACE_FRAMES = 30
 # Device kernel names of the hand-written kernels (csrc/*.cu), as the profiler reports them.
 HAND_WRITTEN = {
     "extrema_scores_kernel": "K1 extrema_scores", "bin_maps_kernel": "K2 bin_maps", "pose_refine_kernel": "K3 pose_refine",
+    "gauss_stack_kernel": "K4 gauss_blur pyramid", "gauss_rows_kernel": "K4 gauss_blur map rows",
 }
 
 
 def hand_written_ms(by_name) -> dict:
-    """{K1 ..., K2 ..., K3 ...: device ms} summed over the profiler's kernel names."""
+    """{K1 ..., K2 ..., K3 ..., K4 ...: device ms} summed over the profiler's kernel names."""
     return {label: sum(v for k, v in by_name.items() if key in k) for key, label in HAND_WRITTEN.items()}
 
 

@@ -2,20 +2,21 @@
 
 Per pyramid level, gradient orientations are soft-binned into 8 channel maps,
 2x2 sum-pooled to stride 2 (kernel K2, ``kernels.bin_maps_octaves``) and blurred at
-the descriptor-cell scale. A keypoint's orientation histogram and its 4x4x8
-descriptor are then a few bilinear ROW samples of those maps (8 contiguous
-channels per sample). See the reference module for the approximations this
+the descriptor-cell scale into channel-last rows (kernel K4, ``bin_map_rows``). A
+keypoint's orientation histogram and its 4x4x8 descriptor are then a few bilinear
+ROW samples of those maps (8 contiguous channels per sample). See the reference module for the approximations this
 makes against Lowe's exact formulation and the tests that gate them.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
 import torch
 
 from . import kernels
-from .pyramid import _const, blur_separable, gaussian_kernel_1d
+from .pyramid import _const, blur_separable, gaussian_kernel_1d, tap_pointers
 
 _NB = kernels.NB  # descriptor orientation bins
 _CELLS = 4  # 4x4 spatial cells
@@ -34,10 +35,14 @@ def _cell_weights() -> np.ndarray:
 _W_CELL = _cell_weights()  # [16]
 
 
+def _map_kernel(sigma_rel: float) -> np.ndarray:
+    """The blur of a level's pooled maps at the descriptor cell window scale (half sigma on the stride-2 grid)."""
+    return gaussian_kernel_1d(max(1.5 * sigma_rel / 2.0, 0.5))
+
+
 def _blur_maps(maps: torch.Tensor, sigma_rel: float) -> torch.Tensor:
-    """Blur [..., 8, H2, W2] pooled maps at the descriptor cell window scale (half sigma on the stride-2 grid)."""
-    sigma_map = max(1.5 * sigma_rel / 2.0, 0.5)
-    return blur_separable(maps, gaussian_kernel_1d(sigma_map))
+    """Blur [..., 8, H2, W2] pooled maps by _map_kernel: the band products."""
+    return blur_separable(maps, _map_kernel(sigma_rel))
 
 
 def build_bin_maps(G_level: torch.Tensor, sigma_rel: float) -> torch.Tensor:
@@ -45,30 +50,77 @@ def build_bin_maps(G_level: torch.Tensor, sigma_rel: float) -> torch.Tensor:
 
     ``sigma_rel`` is the level's scale relative to the octave base; the blur
     approximates the descriptor cell window sigma_cell = 1.5 * sigma_rel. The
-    pooled maps come from kernel K2 on a CUDA tensor, from its plain version
-    on the CPU.
+    pooled maps come from kernel K2 and their blur from K4 on a CUDA tensor,
+    from their plain versions on the CPU.
     """
-    raw = kernels.bin_maps(G_level[None, None])[0, 0]  # [8, H2, W2]
-    return _blur_maps(raw, sigma_rel).permute(1, 2, 0)
+    raw = kernels.bin_maps(G_level[None, None])  # [1, 1, 8, H2, W2]
+    return bin_map_rows([raw], [sigma_rel]).reshape(raw.shape[-2], raw.shape[-1], _NB)
 
 
-def build_bin_map_rows(G_levels: torch.Tensor, sigma_rels, use_pallas: bool = True, raw=None) -> torch.Tensor:
-    """[B, L, H, W] Gaussian levels of one octave -> flat [B, L*H2*W2, 8] map rows.
+def bin_map_rows(raws, sigma_rels, use_pallas: bool = True) -> torch.Tensor:
+    """Unblurred pooled maps, per octave [B, L, 8, H2_o, W2_o] -> the descriptor's flat map rows
+    [B, N, 8]: octave by octave, level by level, row-major, level l blurred by
+    ``_map_kernel(sigma_rels[l])``.
 
-    ``raw`` are the octave's unblurred pooled maps [B, L, 8, H2, W2] where the
-    caller already has them (one K2 launch for the pyramid). Otherwise they are
-    computed here: ``use_pallas`` selects kernel K2 (on a CUDA tensor, reading
-    the levels in place), else, and on the CPU, the plain version. The
-    per-level blur is shared.
+    ``use_pallas`` on a CUDA tensor: kernel K4, every level of every octave in one launch,
+    each writing its rows where they lie; otherwise, and on the CPU, the band products.
     """
-    B, L, H, W = G_levels.shape
-    if raw is None:
-        raw = kernels.bin_maps(G_levels) if use_pallas else kernels.bin_maps_plain(G_levels)
+    raws = list(raws)
+    if use_pallas and raws[0].device.type != "cpu":
+        return _bin_map_rows_k4(raws, [float(s) for s in sigma_rels])
     rows = []
-    for l in range(L):
-        blurred = _blur_maps(raw[:, l], float(sigma_rels[l]))  # [B, 8, H2, W2]
-        rows.append(blurred.permute(0, 2, 3, 1).reshape(B, -1, _NB))
+    for raw in raws:
+        B, L = raw.shape[:2]
+        for l in range(L):
+            blurred = _blur_maps(raw[:, l], float(sigma_rels[l]))  # [B, 8, H2, W2]
+            rows.append(blurred.permute(0, 2, 3, 1).reshape(B, -1, _NB))
     return torch.cat(rows, dim=1)
+
+
+def row_jobs(shapes, n_levels: int) -> list:
+    """(octave, level, first row) of each level's rows in bin_map_rows' output, per octave map size (H2, W2)."""
+    jobs, row = [], 0
+    for o, (H2, W2) in enumerate(shapes):
+        for l in range(n_levels):
+            jobs.append((o, l, row))
+            row += H2 * W2
+    return jobs
+
+
+MAX_ROW_JOBS = 24  # kMaxJobs in csrc/gauss_blur.cu: octaves x levels of one launch
+
+
+def _bin_map_rows_k4(raws, sigma_rels) -> torch.Tensor:
+    """bin_map_rows through K4 (csrc/gauss_blur.cu) in one launch: contiguous float32 maps of one B and L."""
+    B, L = raws[0].shape[:2]
+    for raw in raws:
+        if not (raw.device.type == "cuda" and raw.dtype == torch.float32 and raw.ndim == 5 and raw.is_contiguous()
+                and raw.shape[:3] == (B, L, _NB) and raw.device == raws[0].device and 0 not in raw.shape):
+            raise ValueError(
+                f"gauss_blur: expected contiguous float32 CUDA maps [B, L, 8, H2, W2] of one B, L and device, got "
+                f"{raw.dtype} {tuple(raw.shape)} on {raw.device}"
+            )
+    shapes = [tuple(raw.shape[3:]) for raw in raws]
+    jobs = row_jobs(shapes, L)
+    if not len(jobs) <= MAX_ROW_JOBS or len(sigma_rels) < L:
+        raise ValueError(f"gauss_blur: {len(jobs)} level maps in one launch (at most {MAX_ROW_JOBS}), {len(sigma_rels)} sigmas")
+    dst = torch.empty((B, sum(L * h * w for h, w in shapes), _NB), dtype=torch.float32, device=raws[0].device)
+    srcs = [raws[o].data_ptr() + 4 * l * _NB * shapes[o][0] * shapes[o][1] for o, l, _ in jobs]
+    with torch.cuda.device(dst.device):
+        err = kernels.load().vo_gauss_rows(
+            kernels._array(ctypes.c_void_p, srcs),
+            kernels._array(ctypes.c_longlong, [raws[o].stride(0) for o, _, _ in jobs]),
+            kernels._array(ctypes.c_longlong, [row for _, _, row in jobs]),
+            kernels._array(ctypes.c_int, [shapes[o][0] for o, _, _ in jobs]),
+            kernels._array(ctypes.c_int, [shapes[o][1] for o, _, _ in jobs]),
+            kernels._array(ctypes.c_int, [l for _, l, _ in jobs]),
+            len(jobs), dst.data_ptr(), dst.stride(0), B, L,
+            *tap_pointers(tuple(_map_kernel(s) for s in sigma_rels[:L])),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    kernels.raise_on(err, "gauss_blur")
+    kernels.count_launch("gauss_blur")
+    return dst
 
 
 def _bilinear_rows(flat: torch.Tensor, row_base, ys: torch.Tensor, xs: torch.Tensor, H2, W2) -> torch.Tensor:

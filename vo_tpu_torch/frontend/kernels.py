@@ -3,7 +3,10 @@
 K1 ``extrema_scores`` replaces vo_tpu/frontend/pallas_kernels.py::extrema_scores_pallas;
 K2 ``bin_maps`` replaces vo_tpu/frontend/pallas_kernels.py::bin_maps_pallas. K3
 ``pose_refine`` (RANSAC-P3P's consensus refinement) replaces no TPU kernel; its wrapper
-and plain version live with the rest of RANSAC in pose/ransac.py. Their sources are
+and plain version live with the rest of RANSAC in pose/ransac.py. Nor does K4
+``gauss_blur`` (the detector's separable Gaussian blurs, which the JAX package leaves to
+XLA as band-matrix products); its wrappers and plain versions live with the pyramid
+(pyramid.gauss_stack) and the descriptor maps (dense_desc.bin_map_rows). Their sources are
 ``vo_tpu_torch/csrc/*.cu`` (CUDA C++ for sm_90a; each file notes what bounds its
 kernel). At first use the sources are compiled with ``nvcc`` into one shared library
 under ``build/vo_tpu_torch/`` (named by a hash of the sources and flags, so an edit
@@ -37,15 +40,17 @@ import torch.nn.functional as F
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vo_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+# Compile flags of each source; the objects are then linked with -shared. --split-compile=0 lets nvcc
+# optimise on every core: K4's unrolled passes take most of the build.
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--split-compile=0", "-Xcompiler", "-fPIC"]
 
 NB = 8  # orientation bins of the dense descriptor maps
 MAX_OCTAVES = 8  # octaves one launch takes (kMaxOctaves in csrc/*.cu)
 
 # Kernel launches since the last reset_launches(), by wrapper name.
-LAUNCHES = {"extrema_scores": 0, "bin_maps": 0, "pose_refine": 0}
+LAUNCHES = {"extrema_scores": 0, "bin_maps": 0, "pose_refine": 0, "gauss_blur": 0}
 # Calls recorded into a CUDA graph under capture (never reset: utils.graphs reads the difference).
-CAPTURED = {"extrema_scores": 0, "bin_maps": 0, "pose_refine": 0}
+CAPTURED = {"extrema_scores": 0, "bin_maps": 0, "pose_refine": 0, "gauss_blur": 0}
 
 _lib = None
 
@@ -75,19 +80,29 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu with nvcc unless the library for these sources already exists."""
+    """Compile csrc/*.cu with nvcc unless the library for these sources already exists: every source at
+    once, each in a process of its own, then one link."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    srcs = [str(s) for s in sorted(_CSRC.glob("*.cu"))]
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs], capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
+    with tempfile.TemporaryDirectory(dir=out.parent) as work:
+        srcs = sorted(_CSRC.glob("*.cu"))
+        objs = [os.path.join(work, f"{src.stem}.o") for src in srcs]
+        procs = [
+            subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(src)], stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(srcs, objs)
+        ]
+        failed = [(src.name, p.returncode, log) for src, p in zip(srcs, procs) for log in [p.communicate()[0]]
+                  if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(f"{name} ({rc}):\n{log}" for name, rc, log in failed))
+        tmp = os.path.join(work, out.name)
+        proc = subprocess.run([_nvcc(), "-shared", "-o", tmp, *objs], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -shared failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
     return out
 
 
@@ -115,6 +130,20 @@ def load() -> ctypes.CDLL:
             *[ctypes.c_void_p] * 6,
         ]
         lib.vo_pose_refine.restype = ctypes.c_int
+        # K4 (csrc/gauss_blur.cu; wrappers pyramid.gauss_stack, dense_desc.bin_map_rows). Both end with
+        # the tap tables (radii, taps, lo, hi, tot) and the stream.
+        floats = ctypes.POINTER(ctypes.c_float)
+        taps = [ints, floats, floats, floats, floats, ctypes.c_void_p]
+        lib.vo_gauss_stack.argtypes = [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, *[ctypes.c_int] * 3, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, *taps,
+        ]
+        lib.vo_gauss_stack.restype = ctypes.c_int
+        lib.vo_gauss_rows.argtypes = [
+            ptrs, longs, longs, ints, ints, ints, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_int, *taps,
+        ]
+        lib.vo_gauss_rows.restype = ctypes.c_int
         # The tracer's stage stamp (csrc/stage_stamp.cu; wrapper utils.profiling.write_stamp).
         lib.vo_stage_stamp.argtypes = [ctypes.c_void_p, ctypes.c_void_p, *[ctypes.c_int] * 4, ctypes.c_void_p]
         lib.vo_stage_stamp.restype = ctypes.c_int

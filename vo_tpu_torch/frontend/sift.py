@@ -7,8 +7,8 @@ top-k by response. Orientation and description have two:
 
 - the fast path (``fast_descriptor=True``, the default): orientation
   histograms and descriptors from the dense bin maps (kernel K2, one
-  ``kernels.bin_maps_octaves`` launch, blurred by
-  ``dense_desc.build_bin_map_rows``);
+  ``kernels.bin_maps_octaves`` launch, blurred into the descriptor's rows by
+  ``dense_desc.bin_map_rows``: kernel K4, one launch);
 - the Lowe-exact oracle path (``fast_descriptor=False``): per-keypoint bilinear
   samples of the flattened multi-octave gradient stacks, a 17x17 window for the
   orientation histogram and a rotated 16x16 grid for the 4x4x8 descriptor, as
@@ -349,20 +349,18 @@ def detect_and_describe(img: torch.Tensor, cfg: SIFTConfig) -> Features:
 
     # --- orientation stage (histograms first so multi-peak can duplicate) ---
     if cfg.fast_descriptor:
-        rows, oct_off, H2s, W2s = [], [], [], []
+        oct_off, H2s, W2s = [], [], []
         off = 0
         # Levels 1..s of every octave, read where they lie (views, no copy): kernel K2 in one launch.
         levels = [G[:, 1 : s + 1] for G in pyr.gauss[: cfg.n_octaves]]
-        raws = kernels.bin_maps_octaves(levels) if cfg.use_pallas else [None] * len(levels)
-        for o in range(cfg.n_octaves):
-            G = pyr.gauss[o]
+        raws = kernels.bin_maps_octaves(levels) if cfg.use_pallas else [kernels.bin_maps_plain(g) for g in levels]
+        maps_flat = dense_desc.bin_map_rows(raws, sig[1 : s + 1], use_pallas=cfg.use_pallas)  # [B, N, 8]
+        for G in pyr.gauss[: cfg.n_octaves]:
             H2, W2 = G.shape[2] // 2, G.shape[3] // 2
-            rows.append(dense_desc.build_bin_map_rows(levels[o], sig[1 : s + 1], use_pallas=cfg.use_pallas, raw=raws[o]))
             oct_off.append(off)
             off += s * H2 * W2
             H2s.append(H2)
             W2s.append(W2)
-        maps_flat = torch.cat(rows, dim=1)  # [B, N, 8]
         H2_t, W2_t, off_t = _octave_table("bin_rows", H2s, W2s, oct_off, dev)
 
         def derived(sl):
