@@ -200,7 +200,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      (track ids and poses), and phase 7's graphed resumes 0.0 m from the
      uninterrupted graphed runs. Then one replay of the group step: it must
      account one launch of K1 and K2, one of K3 a frame and one detection
-     call's of K4 in ``kernels.LAUNCHES``, and in the profiler trace of two
+     call's of K4 in ``cuda_lib.LAUNCHES``, and in the profiler trace of two
      more replays K1-K4 must have been launched by ``cudaGraphLaunch``;
      it prints the solver kernels of RANSAC's 6x6 solve, the seconds of the
      first call of each step (warm-up, capture, instantiation, one replay) and
@@ -263,7 +263,7 @@ from vo_tpu_torch.odometry import checkpoint, runner
 from vo_tpu_torch.odometry.refiner import global_desc
 from vo_tpu_torch.pose import ransac
 from vo_tpu_torch.slam.loop_closure import ArchivedKeyframe, LoopCloser
-from vo_tpu_torch.utils import debug, graphs, profiling
+from vo_tpu_torch.utils import cuda_lib, debug, graphs, profiling
 from vo_tpu_torch.utils.precision import matmul_precision
 
 N_FRAMES = 30
@@ -329,6 +329,13 @@ KERNELS = {
 K3 = "pose_refine"  # csrc/pose_refine.cu, one launch per frame a step processes; replaces no TPU kernel
 K4 = "gauss_blur"  # csrc/gauss_blur.cu, 2 + n_octaves launches per fast detection call; replaces no TPU kernel
 K4_TOL = 2e-7  # tests/test_torch_gauss_blur.py: K4 against the card's band products
+COMPUTE = (*KERNELS, K3, K4)  # the compute kernels' keys in cuda_lib.LAUNCHES, which also counts the tracer's stamps
+
+
+def compute_launches(counts: dict) -> dict:
+    """The compute kernels' launches in ``counts`` (cuda_lib.LAUNCHES, or a difference of it): the checks below
+    compare these, since the tracer's stage_stamp launches only where a run is traced."""
+    return {k: counts.get(k, 0) for k in COMPUTE}
 
 
 def median_ms(fn, reps: int = REPS) -> float:
@@ -489,13 +496,13 @@ def check_kernels(feed: runner.StagedSequence, cfg: PipelineConfig) -> dict:
         )
     del flush
     for batch in (one, pair, imgs):
-        kernels.reset_launches()
+        cuda_lib.LAUNCHES.reset()
         detect_and_describe(batch, s)
         for name in KERNELS:
-            stats[name]["launches_per_detect_call"] = kernels.LAUNCHES[name]
-            if kernels.LAUNCHES[name] != 1:
+            stats[name]["launches_per_detect_call"] = cuda_lib.LAUNCHES[name]
+            if cuda_lib.LAUNCHES[name] != 1:
                 raise AssertionError(
-                    f"{name}: {kernels.LAUNCHES[name]} launches in one detection call on {batch.shape[0]} images, expected 1"
+                    f"{name}: {cuda_lib.LAUNCHES[name]} launches in one detection call on {batch.shape[0]} images, expected 1"
                 )
     return stats
 
@@ -610,11 +617,11 @@ def check_gauss_blur(feed: runner.StagedSequence, cfg: PipelineConfig) -> dict:
     st["max_abs_err"] = max(st["max_abs_err_by_batch"].values())
 
     st.update(time_gauss_blur(imgs, cfg))
-    kernels.reset_launches()
+    cuda_lib.LAUNCHES.reset()
     detect_and_describe(imgs, s)
-    st["launches_per_detect_call"] = kernels.LAUNCHES[K4]
-    if kernels.LAUNCHES[K4] != k4_launches(cfg):
-        raise AssertionError(f"{K4}: {kernels.LAUNCHES[K4]} launches in one detection call, expected {k4_launches(cfg)}")
+    st["launches_per_detect_call"] = cuda_lib.LAUNCHES[K4]
+    if cuda_lib.LAUNCHES[K4] != k4_launches(cfg):
+        raise AssertionError(f"{K4}: {cuda_lib.LAUNCHES[K4]} launches in one detection call, expected {k4_launches(cfg)}")
     print(
         f"  {K4}, the detection call's blurs ({imgs.shape[0]} images, {s.n_octaves} octaves, {k4_launches(cfg)} launches): "
         f"{st['ms']:.4f} ms cold as a replayed graph (pyramid {st['pyramid_ms']:.4f} ms, map rows {st['map_rows_ms']:.4f} "
@@ -642,11 +649,11 @@ def check_pose_refine(cfg: PipelineConfig, device) -> dict:
     R, t, _, any_valid = ransac.best_hypothesis(px, X, mask, calib, cfg.ransac, triples)
     args = (R, t, any_valid, px, X, mask, calib, cfg.ransac)
     plain = matmul_precision("float32")(ransac._finalize_plain)
-    n0 = kernels.LAUNCHES[K3]
+    n0 = cuda_lib.LAUNCHES[K3]
     got, again, want = ransac.finalize_pose(*args), ransac.finalize_pose(*args), plain(*args)
     torch.cuda.synchronize()
-    if kernels.LAUNCHES[K3] != n0 + 2:
-        raise AssertionError(f"{K3}: {kernels.LAUNCHES[K3] - n0} launches counted for 2 calls")
+    if cuda_lib.LAUNCHES[K3] != n0 + 2:
+        raise AssertionError(f"{K3}: {cuda_lib.LAUNCHES[K3] - n0} launches counted for 2 calls")
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"{K3}: two launches on the same input differ")
     dt, dr = pose_gaps(want.pose_c2w, got.pose_c2w)
@@ -742,10 +749,10 @@ def refined_path(feed: OutAndBackFeed, cfg: PipelineConfig, device):
     n = len(feed)
     gt = feed.gt_poses
     plain = runner.run_sequence(feed, cfg, device=device)
-    kernels.reset_launches()
+    cuda_lib.LAUNCHES.reset()
     graphs.reset_programs()
     res = runner.run_sequence(feed, cfg, use_ba=True, use_loop_closure=True, device=device)
-    launches = dict(kernels.LAUNCHES)
+    launches = compute_launches(cuda_lib.LAUNCHES)
     programs = {k: dict(v) for k, v in graphs.PROGRAMS.items()}
     ate_plain = metrics.ate(plain.poses, gt)["rmse"]
     ate = metrics.ate(res.poses, gt)["rmse"]
@@ -836,10 +843,10 @@ def no_progress(i, info) -> None:
 
 
 def counted(launches_by_path: dict, path: str, fn):
-    """fn() with the kernels' launch counters set to 0 just before and read just after."""
-    kernels.reset_launches()
+    """fn() with the launch counters set to 0 just before and the compute kernels' read just after."""
+    cuda_lib.LAUNCHES.reset()
     out = fn()
-    launches_by_path[path] = dict(kernels.LAUNCHES)
+    launches_by_path[path] = compute_launches(cuda_lib.LAUNCHES)
     return out
 
 
@@ -970,8 +977,9 @@ def host_paths(feed, cfg: PipelineConfig, device, grouped: runner.RunResult, tmp
     # One detection call per group replayed, one in the eager warm-up run that precedes the capture, and one in
     # the replay of the runner's warm-up call.
     calls = n_dev // cfg.fused_group + 2
-    if log.hand_written != {**{k: calls for k in KERNELS}, K3: calls * cfg.fused_group, K4: calls * k4_launches(cfg)} or not log.device_launches or not np.isfinite(checked.poses).all():
-        raise AssertionError(f"compile_logging counted {log.hand_written} and {log.device_launches} launches in {n_dev} frames")
+    kernels_run = compute_launches(log.hand_written)  # (the profiler turns the stamps on)
+    if kernels_run != {**{k: calls for k in KERNELS}, K3: calls * cfg.fused_group, K4: calls * k4_launches(cfg)} or not log.device_launches or not np.isfinite(checked.poses).all():
+        raise AssertionError(f"compile_logging counted {kernels_run} and {log.device_launches} launches in {n_dev} frames")
     if not refused:
         raise AssertionError("a graphed run under nan_debug did not raise the ValueError that names graph=False")
     print(f"    utils.debug: {json.dumps(log.per_frame(n_dev))} over {n_dev} deferred graphed frames (the capture's warm-up run "
@@ -1280,7 +1288,7 @@ def nccl_world_of_one(feed, cfg: PipelineConfig, device, tmp: str) -> None:
         got, want = sharded(), single()  # also the warm call: NCCL builds its communicator on first use
         torch.cuda.synchronize()
         same_bits(got, want, name)
-        mesh_mod.reset_collectives()
+        mesh_mod.COLLECTIVES.reset()
         torch.cuda.set_sync_debug_mode("error")  # a host wait inside the sharded call raises
         try:
             sharded()
@@ -1322,18 +1330,18 @@ def nccl_world_of_one(feed, cfg: PipelineConfig, device, tmp: str) -> None:
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"{name}: the replay differs from the eager sharded call")
-        mesh_mod.reset_collectives()
+        mesh_mod.COLLECTIVES.reset()
         torch.cuda.set_sync_debug_mode("error")  # a host wait inside the replay raises
         try:
             call()
         finally:
             torch.cuda.set_sync_debug_mode("default")
         replayed = dict(mesh_mod.COLLECTIVES)
-        mesh_mod.reset_collectives()
+        mesh_mod.COLLECTIVES.reset()
         fn()
-        if not (replayed == mesh_mod.COLLECTIVES == call.captured.collectives and sum(replayed.values()) >= 1):
+        if not (replayed == mesh_mod.COLLECTIVES == call.captured.counted["collectives"] and sum(replayed.values()) >= 1):
             raise AssertionError(f"{name}: collectives per replay {replayed}, eager {mesh_mod.COLLECTIVES}, "
-                                 f"captured {call.captured.collectives}")
+                                 f"captured {call.captured.counted['collectives']}")
         by, copies, host = replay_trace(call, os.path.join(tmp, "nccl_replay.json"))
         # Besides the one cudaGraphLaunch, only a registered generator's prologue (its seed and offset
         # written into the graph's device scalars: two fills) may launch anything.
@@ -1429,13 +1437,13 @@ def mesh_rank(mesh, device, frames_path: str, gt_poses, use_ba: bool) -> dict:
     runner.run_sequence(feed, cfg, mesh=mesh, device=device, use_ba=use_ba)  # warm run
     order.clear()
     batches.clear()
-    kernels.reset_launches()
-    mesh_mod.reset_collectives()
+    cuda_lib.LAUNCHES.reset()
+    mesh_mod.COLLECTIVES.reset()
     graphs.reset_programs()
     res = runner.run_sequence(feed, cfg, mesh=mesh, device=device, use_ba=use_ba)
     out = dict(
         poses=res.poses, pose_ok=res.pose_ok, n_inliers=res.n_inliers, per_frame_ms=res.per_frame_ms,
-        launches=dict(kernels.LAUNCHES), collectives=dict(mesh_mod.COLLECTIVES), batches=sorted(set(batches)),
+        launches=compute_launches(cuda_lib.LAUNCHES), collectives=dict(mesh_mod.COLLECTIVES), batches=sorted(set(batches)),
         n_keyframes=res.refine_stats.get("n_keyframes"), ba_solves=res.refine_stats.get("ba_solves"),
         programs={k: {n: v[n] for n in ("captures", "replays")} for k, v in graphs.PROGRAMS.items()},
         order=list(order),
@@ -1852,8 +1860,8 @@ def main() -> int:
     print(smi)
 
     t = time.perf_counter()
-    lib = kernels.build()
-    kernels.load()
+    lib = cuda_lib.build()
+    cuda_lib.load()
     print(f"[2] built {lib.name} from vo_tpu_torch/csrc in {time.perf_counter() - t:.2f} s")
 
     cfg = PipelineConfig()

@@ -327,8 +327,7 @@ def test_debug_utils():
     """The port's mirror of tests/test_profiling.py::test_debug_utils."""
     import itertools
 
-    from vo_tpu_torch.frontend import kernels
-    from vo_tpu_torch.utils import debug
+    from vo_tpu_torch.utils import cuda_lib, debug
 
     with debug.nan_debug():
         assert debug.nan_checks_enabled()
@@ -337,9 +336,9 @@ def test_debug_utils():
         debug.check_finite("s", (torch.tensor([1.0, float("nan")]),), mask=torch.tensor([True, False]))
     debug.check_finite("s", torch.tensor([float("nan")]))  # outside the context: no check
     with debug.compile_logging() as log:
-        kernels.LAUNCHES["extrema_scores"] += 2  # as two launches inside the block would
-    kernels.LAUNCHES["extrema_scores"] -= 2
-    assert log.hand_written == {"extrema_scores": 2, "bin_maps": 0, "pose_refine": 0, "gauss_blur": 0}
+        cuda_lib.LAUNCHES["extrema_scores"] += 2  # as two launches inside the block would
+    cuda_lib.LAUNCHES["extrema_scores"] -= 2
+    assert log.hand_written == {"extrema_scores": 2, "bin_maps": 0, "pose_refine": 0, "gauss_blur": 0, "stage_stamp": 0}
     assert log.per_frame(2)["extrema_scores_per_frame"] == 1.0
     assert log.device_launches is None or log.device_launches >= 0  # traced only where there is a card
     x = torch.arange(4.0)

@@ -111,7 +111,7 @@ def _np(nt) -> dict:
 
 
 def _counted(fn):
-    p_mesh.reset_collectives()
+    p_mesh.COLLECTIVES.reset()
     out = fn()
     return out, dict(p_mesh.COLLECTIVES)
 

@@ -21,7 +21,7 @@ from vo_tpu_torch.config import PipelineConfig, SIFTConfig
 from vo_tpu_torch.frontend import dense_desc, kernels, pyramid, sift
 from vo_tpu_torch.io import kitti, synthetic
 from vo_tpu_torch.odometry import landmarks, pipeline, runner
-from vo_tpu_torch.utils import graphs
+from vo_tpu_torch.utils import cuda_lib, graphs
 
 # The suite runs in several worker processes at once: one thread each, or they fight for the cores.
 torch.set_num_threads(1)
@@ -140,9 +140,9 @@ def test_oracle_bin_rows_match_the_band_products():
 def test_cpu_detection_launches_no_blur_kernel():
     """A detection call on CPU tensors takes the band products: no K4 launch (nor K1, K2)."""
     rng = np.random.default_rng(5)
-    before = dict(kernels.LAUNCHES)
+    before = dict(cuda_lib.LAUNCHES)
     f = sift.detect_and_describe(torch.from_numpy(rng.random((2, 64, 96), np.float32)), SIFTConfig(max_keypoints=64, n_octaves=2))
-    assert kernels.LAUNCHES == before
+    assert cuda_lib.LAUNCHES == before
     assert torch.isfinite(f.desc).all()
 
 
@@ -252,12 +252,12 @@ def test_graphed_equals_eager_and_counts_per_replay(cuda):
     pyr, _, rows = _both(imgs, True)
     static = imgs.clone()
     captured = graphs.capture(lambda: _both(static, True), cuda)
-    assert captured.launches["gauss_blur"] == 6
+    assert captured.counted["launches"]["gauss_blur"] == 6
     static.copy_(imgs.flip(0))
-    n = kernels.LAUNCHES["gauss_blur"]
+    n = cuda_lib.LAUNCHES["gauss_blur"]
     gpyr, _, grows = captured.replay()
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["gauss_blur"] == n + 6
+    assert cuda_lib.LAUNCHES["gauss_blur"] == n + 6
     flipped = _both(imgs.flip(0).contiguous(), True)
     for o in range(4):
         assert torch.equal(gpyr.gauss[o], flipped[0].gauss[o]) and torch.equal(gpyr.dog[o], flipped[0].dog[o])
@@ -278,13 +278,13 @@ def test_step_replays_launch_the_blurs(cuda):
     state = pipeline.init_state(cfg, 0, cuda)
     lmap = landmarks.init_map(cfg.landmarks, cuda)
     state, lmap, *_ = group(state, lmap, *frames[0], *frames[1])  # captures, then replays
-    n = kernels.LAUNCHES["gauss_blur"]
+    n = cuda_lib.LAUNCHES["gauss_blur"]
     state, lmap, *_ = group(state, lmap, *frames[0], *frames[1])
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["gauss_blur"] == n + per_call
+    assert cuda_lib.LAUNCHES["gauss_blur"] == n + per_call
     state1 = pipeline.init_state(cfg, 0, cuda)
     state1, _ = single(state1, *frames[0])
-    n = kernels.LAUNCHES["gauss_blur"]
+    n = cuda_lib.LAUNCHES["gauss_blur"]
     state1, _ = single(state1, *frames[1])
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["gauss_blur"] == n + per_call
+    assert cuda_lib.LAUNCHES["gauss_blur"] == n + per_call

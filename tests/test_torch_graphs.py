@@ -11,6 +11,7 @@ images, 2 octaves, 256 keypoints, 64 RANSAC hypotheses, on the committed
 KITTI-00 geometry.
 """
 import dataclasses
+import types
 from pathlib import Path
 
 import jax
@@ -25,13 +26,13 @@ from vo_tpu.io import synthetic as r_syn
 from vo_tpu.odometry import landmarks as r_lm
 from vo_tpu.odometry import pipeline as r_pipe
 from vo_tpu_torch import convert
-from vo_tpu_torch.frontend import kernels
+from vo_tpu_torch.dist import mesh as p_mesh
 from vo_tpu_torch.io import kitti as p_kitti
 from vo_tpu_torch.io import synthetic as p_syn
 from vo_tpu_torch.odometry import landmarks as p_lm
 from vo_tpu_torch.odometry import pipeline as p_pipe
 from vo_tpu_torch.odometry import runner as p_runner
-from vo_tpu_torch.utils import debug, graphs
+from vo_tpu_torch.utils import cuda_lib, debug, graphs
 
 # The suite runs in several worker processes at once: one thread each, or they fight for the cores.
 torch.set_num_threads(1)
@@ -267,17 +268,49 @@ def test_replay_adds_the_captured_launches():
             self.replays += 1
 
     g = _Graph()
-    cap = graphs.Captured(g, outputs=("out",), launches={"extrema_scores": 1, "bin_maps": 2})
-    before = dict(kernels.LAUNCHES)
+    cap = graphs.Captured(g, outputs=("out",), counted={"launches": {"extrema_scores": 1, "bin_maps": 2}})
+    before = dict(cuda_lib.LAUNCHES)
     try:
         assert cap.replay() == ("out",) and cap.replay() == ("out",)
         assert g.replays == 2
-        assert kernels.LAUNCHES == {
-            "extrema_scores": before["extrema_scores"] + 2, "bin_maps": before["bin_maps"] + 4,
-            "pose_refine": before["pose_refine"], "gauss_blur": before["gauss_blur"],
+        assert cuda_lib.LAUNCHES == {
+            **before, "extrema_scores": before["extrema_scores"] + 2, "bin_maps": before["bin_maps"] + 4,
         }
     finally:
-        kernels.LAUNCHES.update(before)
+        cuda_lib.LAUNCHES.update(before)
+
+
+@pytest.mark.parametrize("counter, key", [("launches", "pose_refine"), ("launches", "gauss_blur"),
+                                          ("collectives", "all_reduce")])
+def test_a_call_under_capture_counts_at_each_replay(monkeypatch, counter, key):
+    """A call counted under a (faked) capture counts as captured, not run; the graph that holds it
+    adds it to the counter on each replay. A CPU tensor never asks whether its stream is capturing."""
+    assert cuda_lib.COUNTS["launches"] is cuda_lib.LAUNCHES and cuda_lib.COUNTS["collectives"] is p_mesh.COLLECTIVES
+    counts = cuda_lib.COUNTS[counter]
+    x = torch.zeros(1)
+
+    def asked(*a):
+        raise AssertionError("asked whether a CPU tensor's stream is capturing")
+
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", asked)
+    assert not cuda_lib.capturing(x)
+    before, snap = dict(counts), cuda_lib.captured()
+    monkeypatch.setattr(cuda_lib, "capturing", lambda t: True)
+    counts.count(key, x)
+    counted = cuda_lib.captured(since=snap)
+    assert counted == {name: {k: int(name == counter and k == key) for k in c} for name, c in cuda_lib.COUNTS.items()}
+    assert counts == before
+    cap = graphs.Captured(types.SimpleNamespace(replay=lambda: None), outputs=(), counted=counted)
+    try:
+        cap.replay()
+        cap.replay()
+        assert counts == {**before, key: before[key] + 2}
+        monkeypatch.setattr(cuda_lib, "capturing", lambda t: False)
+        counts.count(key, x)
+        assert counts[key] == before[key] + 3 and cuda_lib.captured(since=snap) == counted
+    finally:
+        counts.update(before)
+        counts.captured[key] -= 1
 
 
 def _refined_feed():

@@ -17,6 +17,7 @@ from scipy.ndimage import gaussian_filter
 
 from vo_tpu_torch.config import SIFTConfig
 from vo_tpu_torch.frontend import kernels, sift
+from vo_tpu_torch.utils import cuda_lib
 
 # The suite runs in several worker processes at once: one thread each, or they fight for the cores.
 torch.set_num_threads(1)
@@ -131,10 +132,10 @@ def test_bin_maps_plain_matches_reference(rng, H, W):
 def test_wrappers_take_plain_version_on_cpu(rng):
     dog = torch.from_numpy(np.stack([_dog(rng, 5, 40, 60)]))
     G = torch.from_numpy(rng.random((3, 40, 60), np.float32))
-    before = dict(kernels.LAUNCHES)
+    before = dict(cuda_lib.LAUNCHES)
     assert torch.equal(kernels.extrema_scores(dog, THR), kernels.extrema_scores_plain(dog, THR))
     assert torch.equal(kernels.bin_maps(G), kernels.soft_bin_pool_plain(G))
-    assert kernels.LAUNCHES == before  # the plain version is not a launch
+    assert cuda_lib.LAUNCHES == before  # the plain version is not a launch
 
 
 def test_wrappers_raise_off_cpu_and_cuda():
@@ -174,10 +175,10 @@ def test_octave_wrappers_equal_per_octave_plain(rng, sizes):
     dogs = [torch.from_numpy(np.stack([_dog(rng, 5, H, W) for _ in range(2)])) for H, W in sizes]
     gauss = [torch.from_numpy(rng.random((2, 6, H, W), np.float32)) for H, W in sizes]
     levels = [g[:, 1:4] for g in gauss]
-    before = dict(kernels.LAUNCHES)
+    before = dict(cuda_lib.LAUNCHES)
     scores = kernels.extrema_scores_octaves(dogs, THR, BORDER)
     maps = kernels.bin_maps_octaves(levels)
-    assert kernels.LAUNCHES == before
+    assert cuda_lib.LAUNCHES == before
     assert len(scores) == len(maps) == len(sizes)
     for (H, W), dog, lev, sc, mp in zip(sizes, dogs, levels, scores, maps):
         assert torch.equal(sc, kernels.extrema_scores_plain(dog, THR, BORDER))
@@ -223,10 +224,10 @@ def test_extrema_kernel_matches_plain(cuda, B, H, W):
     below, at and just above a multiple of the 4-row tile, and images that are all border."""
     rng = np.random.default_rng(7)
     dog = torch.from_numpy(np.stack([_dog(rng, 5, H, W) for _ in range(B)])).to(cuda)
-    n = kernels.LAUNCHES["extrema_scores"]
+    n = cuda_lib.LAUNCHES["extrema_scores"]
     got = kernels.extrema_scores(dog, THR)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["extrema_scores"] == n + 1
+    assert cuda_lib.LAUNCHES["extrema_scores"] == n + 1
     assert torch.equal(got, kernels.extrema_scores_plain(dog, THR))
 
 
@@ -249,10 +250,10 @@ def test_extrema_kernel_octaves_in_one_launch(cuda):
     rng = np.random.default_rng(10)
     sizes = [(376, 1241), (188, 621), (94, 311), (47, 156)]
     dogs = [torch.from_numpy(np.stack([_dog(rng, 5, H, W) for _ in range(4)])).to(cuda) for H, W in sizes]
-    n = kernels.LAUNCHES["extrema_scores"]
+    n = cuda_lib.LAUNCHES["extrema_scores"]
     got = kernels.extrema_scores_octaves(dogs, THR)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["extrema_scores"] == n + 1
+    assert cuda_lib.LAUNCHES["extrema_scores"] == n + 1
     for g, d in zip(got, dogs):
         assert torch.equal(g, kernels.extrema_scores_plain(d, THR))
 
@@ -268,10 +269,10 @@ def test_bin_maps_kernel_matches_plain(cuda, B, H, W):
     (126 to 130 pixels), heights below and just above a 16-row pooled tile, and the smallest image."""
     rng = np.random.default_rng(8)
     G = torch.from_numpy(rng.random((B, H, W), np.float32)).to(cuda)
-    n = kernels.LAUNCHES["bin_maps"]
+    n = cuda_lib.LAUNCHES["bin_maps"]
     got = kernels.bin_maps(G)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["bin_maps"] == n + 1
+    assert cuda_lib.LAUNCHES["bin_maps"] == n + 1
     assert got.shape == (B, 8, H // 2, W // 2)
     assert (got - kernels.soft_bin_pool_plain(G)).abs().max().item() <= 1e-5
 
@@ -295,10 +296,10 @@ def test_bin_maps_kernel_reads_strided_levels_in_one_launch(cuda):
     sizes = [(376, 1241), (188, 621), (94, 311), (47, 156)]
     gauss = [torch.from_numpy(rng.random((4, 6, H, W), np.float32)).to(cuda) for H, W in sizes]
     levels = [g[:, 1:4] for g in gauss]
-    n = kernels.LAUNCHES["bin_maps"]
+    n = cuda_lib.LAUNCHES["bin_maps"]
     got = kernels.bin_maps_octaves(levels)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["bin_maps"] == n + 1
+    assert cuda_lib.LAUNCHES["bin_maps"] == n + 1
     for g, lev in zip(got, levels):
         assert (g - kernels.bin_maps_plain(lev)).abs().max().item() <= 1e-5
     rows = gauss[1][:, :, ::2]  # a row stride of 2 * W as well
@@ -313,10 +314,10 @@ def test_kernels_take_a_detection_batch_of_one(cuda):
     sizes = [(376, 1241), (188, 621), (94, 311), (47, 156)]
     dogs = [torch.from_numpy(_dog(rng, 5, H, W)[None]).to(cuda) for H, W in sizes]
     levels = [torch.from_numpy(rng.random((1, 6, H, W), np.float32)).to(cuda)[:, 1:4] for H, W in sizes]
-    n1, n2 = kernels.LAUNCHES["extrema_scores"], kernels.LAUNCHES["bin_maps"]
+    n1, n2 = cuda_lib.LAUNCHES["extrema_scores"], cuda_lib.LAUNCHES["bin_maps"]
     scores, maps = kernels.extrema_scores_octaves(dogs, THR), kernels.bin_maps_octaves(levels)
     torch.cuda.synchronize()
-    assert (kernels.LAUNCHES["extrema_scores"], kernels.LAUNCHES["bin_maps"]) == (n1 + 1, n2 + 1)
+    assert (cuda_lib.LAUNCHES["extrema_scores"], cuda_lib.LAUNCHES["bin_maps"]) == (n1 + 1, n2 + 1)
     for got, d in zip(scores, dogs):
         assert torch.equal(got, kernels.extrema_scores_plain(d, THR))
     for got, lev in zip(maps, levels):

@@ -9,8 +9,8 @@ and nothing that issues a collective over gloo.
 A CUDA graph cannot run here, so a launched rank (dist.mesh.launch: gloo on
 the CPU, real processes) stands in for the capture as ``tests/test_torch_graphs.py``
 does: ``_capture`` runs the body once eagerly (the warm-up), once more "under
-capture", where the mesh's collectives count apart (``dist.mesh.CAPTURED``,
-as on the card), and each replay runs the body again the same way and writes
+capture", where the mesh's collectives count apart
+(``dist.mesh.COLLECTIVES.captured``, as on the card), and each replay runs the body again the same way and writes
 the outputs into the static outputs made at capture; ``utils.graphs.Captured``
 then adds the captured collectives per replay, as on the card. ``wanted``
 says yes to every program of the mesh, so the (2, 2) plain run and the
@@ -44,7 +44,7 @@ from vo_tpu_torch.odometry import landmarks as p_lm
 from vo_tpu_torch.odometry import pipeline as p_pipe
 from vo_tpu_torch.odometry import refiner as p_ref
 from vo_tpu_torch.odometry import runner as p_runner
-from vo_tpu_torch.utils import graphs
+from vo_tpu_torch.utils import cuda_lib, graphs
 
 # The suite runs in several worker processes at once: one thread each, or they fight for the cores.
 torch.set_num_threads(1)
@@ -112,15 +112,15 @@ class _BodyGraph:
 
 def _capture(body, device, pool=None, generators=()):
     """``graphs.capture``'s stand-in: the eager warm-up run, then the "capture", whose collectives
-    ``dist.mesh`` counts in ``CAPTURED``, as a real capture does."""
+    ``dist.mesh`` counts as captured, as a real capture does."""
     graphs.refuse_nan_debug()
     body()
-    before = dict(p_mesh.CAPTURED)
+    before = cuda_lib.captured()
     with _recording():
         outputs = graphs.static_copy(body())
-    collectives = {k: p_mesh.CAPTURED[k] - v for k, v in before.items()}
-    CAPTURES.append(collectives)
-    return graphs.Captured(_BodyGraph(body, outputs), outputs, {}, collectives)
+    counted = cuda_lib.captured(since=before)
+    CAPTURES.append(counted["collectives"])
+    return graphs.Captured(_BodyGraph(body, outputs), outputs, counted)
 
 
 CAPTURES: list = []  # the collectives of each capture this rank made
@@ -128,7 +128,7 @@ CAPTURES: list = []  # the collectives of each capture this rank made
 
 def _stand_in(rule):
     """Route this rank's programs through the stand-in; ``rule`` replaces ``graphs.wanted``."""
-    p_mesh._capturing = lambda t: getattr(_RECORDING, "on", False)
+    cuda_lib.capturing = lambda t: getattr(_RECORDING, "on", False)
     graphs.capture = _capture
     graphs.Pool = lambda device: None
     graphs.wanted = rule
@@ -155,7 +155,7 @@ def _step_collectives(mesh, device, seq, cfg) -> dict:
         step = p_pipe.make_fused_loop_step(calib, cfg, with_landmarks=True, mesh=mesh, graph=g)
         state, lmap = p_pipe.init_state(cfg, 0, device), p_lm.init_map(cfg.landmarks, device)
         state, lmap, _ = step(state, lmap, *frames[0])
-        p_mesh.reset_collectives()
+        p_mesh.COLLECTIVES.reset()
         for f in frames[1:]:
             state, lmap, _ = step(state, lmap, *f)
         counts[name] = dict(p_mesh.COLLECTIVES)
@@ -168,7 +168,7 @@ def _solve_collectives(mesh, device, seq, cfg) -> dict:
     for name, g in (("graphed", None), ("eager", False)):
         wba = p_bar.WindowedBA(seq.calib, cfg.ba, device=device, mesh=mesh, graph=g)
         wba.warmup()
-        p_mesh.reset_collectives()
+        p_mesh.COLLECTIVES.reset()
         wba.warmup()
         counts[name] = dict(p_mesh.COLLECTIVES)
     return counts
@@ -310,7 +310,7 @@ def _images(n=2):
 @pytest.fixture()
 def static_programs(monkeypatch):
     """Programs take the static-buffer path on the CPU (the stand-in above, in this process)."""
-    monkeypatch.setattr(p_mesh, "_capturing", lambda t: getattr(_RECORDING, "on", False))
+    monkeypatch.setattr(cuda_lib, "capturing", lambda t: getattr(_RECORDING, "on", False))
     monkeypatch.setattr(graphs, "capture", _capture)
     monkeypatch.setattr(graphs, "Pool", lambda device: None)
     monkeypatch.setattr(graphs, "wanted", lambda graph, device, backends=None: graph is not False)
@@ -397,15 +397,15 @@ def _sharded_calls_rank(mesh, device):
         state = gen.get_state()
         call = graphs.StaticCall(fn, inputs, device, name, generators=gens)
         gen.set_state(state)
-        p_mesh.reset_collectives()
+        p_mesh.COLLECTIVES.reset()
         got = [t.clone() for t in call(*inputs)]
         replayed = dict(p_mesh.COLLECTIVES)
         gen.set_state(state)
-        p_mesh.reset_collectives()
+        p_mesh.COLLECTIVES.reset()
         want = list(fn(*inputs))
         eager = dict(p_mesh.COLLECTIVES)
         out[name] = dict(equal=all(torch.equal(a, b) for a, b in zip(got, want)), replayed=replayed, eager=eager,
-                         captured=call.captured.collectives)
+                         captured=call.captured.counted["collectives"])
     return out
 
 

@@ -8,6 +8,7 @@ Each side gets the configuration in its own package's classes (``_cfg`` the
 reference's, ``_pcfg`` the port's copy of it), and the port runs on the CPU
 because every call names it (``device="cpu"``).
 """
+import ast
 import os
 import subprocess
 import sys
@@ -180,6 +181,39 @@ def test_runner_takes_every_reference_option():
     for k in ref:
         assert port[k].default == ref[k].default, k
     assert p_runner.KITTI_DT == r_runner.KITTI_DT
+
+
+def _port_imports(path: Path) -> set:
+    """The vo_tpu_torch modules that a file of the package imports, relative imports resolved."""
+    pkg = path.relative_to(REPO).with_suffix("").parts[:-1]  # e.g. ("vo_tpu_torch", "utils")
+    out = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            out |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            base = ".".join(pkg[: len(pkg) - node.level + 1]) if node.level else ""
+            if node.module:
+                out.add(f"{base}.{node.module}" if base else node.module)
+            else:
+                out |= {f"{base}.{a.name}" for a in node.names}
+    return {m for m in out if m.startswith("vo_tpu_torch.")}
+
+
+# sub-package: the parts of vo_tpu_torch it may not import (None: everything outside itself)
+IMPORT_RULES = {"utils": None, "geom": {"frontend"}, "pose": {"frontend"}, "io": {"frontend"}}
+
+
+@pytest.mark.parametrize("sub", list(IMPORT_RULES))
+def test_imports_point_down(sub):
+    """utils/ (the CUDA library, the graphs, the tracer) imports nothing of the package outside itself,
+    and geom/, pose/ and io/ nothing of frontend/: the import graph points one way."""
+    wrong = {}
+    for path in sorted((REPO / "vo_tpu_torch" / sub).glob("*.py")):
+        parts = {m.split(".")[1] for m in _port_imports(path)}
+        bad = parts - {sub} if IMPORT_RULES[sub] is None else parts & IMPORT_RULES[sub]
+        if bad:
+            wrong[path.name] = sorted(bad)
+    assert not wrong, wrong
 
 
 def test_port_never_imports_jax():

@@ -16,12 +16,11 @@ import pytest
 import torch
 
 from vo_tpu_torch.config import PipelineConfig, RansacConfig
-from vo_tpu_torch.frontend import kernels
 from vo_tpu_torch.geom import se3
 from vo_tpu_torch.io import kitti, synthetic
 from vo_tpu_torch.odometry import runner
 from vo_tpu_torch.pose import ransac
-from vo_tpu_torch.utils import graphs
+from vo_tpu_torch.utils import cuda_lib, graphs
 from vo_tpu_torch.utils.precision import matmul_precision
 
 # The suite runs in several worker processes at once: one thread each, or they fight for the cores.
@@ -129,7 +128,7 @@ def _finalize_both(case, device):
 
 def test_wrapper_takes_plain_version_on_cpu():
     """On CPU tensors the wrapper returns the plain version's output bit for bit and launches nothing."""
-    before = dict(kernels.LAUNCHES)
+    before = dict(cuda_lib.LAUNCHES)
     for name in ("n1024", "few_inliers"):
         args = _tensors(_case(name), "cpu")
         calib = _calib()
@@ -137,7 +136,7 @@ def test_wrapper_takes_plain_version_on_cpu():
         want = ransac._finalize_plain(*args, calib, CFG)
         for a, b in zip(got, want):
             assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
-    assert kernels.LAUNCHES == before
+    assert cuda_lib.LAUNCHES == before
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -184,10 +183,10 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
         mask = torch.ones(mask.shape, dtype=torch.bool, device="cpu")
     else:
         match = "pose_refine: expected CPU or CUDA tensors"
-    before = dict(kernels.LAUNCHES)
+    before = dict(cuda_lib.LAUNCHES)
     with pytest.raises(ValueError, match=match):
         ransac._finalize_f32(R, t, any_valid, px2d, pts3d, mask, _calib(), CFG)
-    assert kernels.LAUNCHES == before
+    assert cuda_lib.LAUNCHES == before
 
 
 @pytest.fixture
@@ -232,11 +231,11 @@ def test_kernel_repeats_bit_for_bit_and_counts_its_launches(cuda):
     """Two launches on the same input: every output equal bit for bit; one launch counted each."""
     args = _tensors(_case("n1024"), cuda)
     calib = _calib().to(cuda)
-    n = kernels.LAUNCHES["pose_refine"]
+    n = cuda_lib.LAUNCHES["pose_refine"]
     a = ransac.finalize_pose(*args, calib, CFG)
     b = ransac.finalize_pose(*args, calib, CFG)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["pose_refine"] == n + 2
+    assert cuda_lib.LAUNCHES["pose_refine"] == n + 2
     for x, y in zip(a, b):
         assert torch.equal(x, y) and x.data_ptr() != y.data_ptr()
 
@@ -266,7 +265,7 @@ def test_graphed_run_equals_eager_and_launches_once_a_frame(cuda):
     feed = _OutAndBack(cuda)
     cfg = PipelineConfig()
     eager = runner.run_sequence(feed, cfg, device=cuda, graph=False)
-    kernels.reset_launches()
+    cuda_lib.LAUNCHES.reset()
     graphs.reset_programs()
     graphed = runner.run_sequence(feed, cfg, device=cuda)
     for name in ("poses", "rel_poses", "pose_ok", "n_inliers", "n_tracks", "landmarks"):
@@ -275,5 +274,5 @@ def test_graphed_run_equals_eager_and_launches_once_a_frame(cuda):
     steps = {name: graphs.WARMUP_RUNS * p["captures"] + p["replays"] for name, p in graphs.PROGRAMS.items()}
     frames = cfg.fused_group * steps["group_step"] + steps.get("frame_step", 0)
     assert frames >= len(feed)
-    assert kernels.LAUNCHES["pose_refine"] == frames
-    assert kernels.LAUNCHES["extrema_scores"] == steps["group_step"] + steps.get("frame_step", 0)
+    assert cuda_lib.LAUNCHES["pose_refine"] == frames
+    assert cuda_lib.LAUNCHES["extrema_scores"] == steps["group_step"] + steps.get("frame_step", 0)

@@ -20,7 +20,7 @@ from vo_tpu_torch.config import PipelineConfig, RansacConfig, SIFTConfig
 from vo_tpu_torch.io import synthetic as p_syn
 from vo_tpu_torch.odometry import runner
 from vo_tpu_torch.odometry.pipeline import stage_columns
-from vo_tpu_torch.utils import graphs, profiling
+from vo_tpu_torch.utils import cuda_lib, graphs, profiling
 
 # The suite runs in several worker processes at once: one thread each, or they fight for the cores.
 torch.set_num_threads(1)
@@ -320,16 +320,17 @@ def test_graphed_stamps_on_the_card():
     )
     cfg = PipelineConfig(sift=SIFTConfig(max_keypoints=512, n_octaves=3), ransac=RansacConfig(n_hypotheses=128),
                          max_tracks=512)
+    stamps = cuda_lib.LAUNCHES
     for kw in ({}, dict(progress=lambda i, s: None)):
-        before = dict(profiling.STAMPS)
+        before = (stamps["stage_stamp"], stamps.captured["stage_stamp"])
         off = runner.run_sequence(seq, cfg, device=device, **kw)
-        assert profiling.STAMPS == before and off.trace is None
+        assert (stamps["stage_stamp"], stamps.captured["stage_stamp"]) == before and off.trace is None
         with profiling.tracing():
             on = runner.run_sequence(seq, cfg, device=device, **kw)
         for k in FIELDS:
             assert np.array_equal(getattr(on, k), getattr(off, k)), k
         widths = {len(c) for c in on.trace.stages}
-        captured = profiling.STAMPS["captured"] - before["captured"]
+        captured = stamps.captured["stage_stamp"] - before[1]
         assert captured == sum(widths), (captured, widths)  # one stamp node a column of each graph
         for row, cols in zip(on.trace.raw, on.trace.stages):
             assert (row[: len(cols)] > 0).all() and (np.diff(row[: len(cols)]) >= 0).all(), row

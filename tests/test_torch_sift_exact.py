@@ -22,6 +22,7 @@ from vo_tpu.frontend import pyramid as r_pyr
 from vo_tpu.frontend import sift as r_sift
 from vo_tpu_torch.convert import config_from_reference
 from vo_tpu_torch.frontend import kernels
+from vo_tpu_torch.utils import cuda_lib
 from vo_tpu_torch.frontend import pyramid as p_pyr
 from vo_tpu_torch.frontend import sift as p_sift
 from vo_tpu_torch.io import synthetic
@@ -193,8 +194,9 @@ def test_exact_path_uses_plain_k1_and_never_k2(frames, monkeypatch):
     for name in ("bin_maps_plain", "bin_maps_octaves", "bin_maps", "soft_bin_pool_plain"):
         monkeypatch.setattr(kernels, name, count_k2)
     cfg = config_from_reference(SIFTConfig(max_keypoints=256, n_octaves=3, fast_descriptor=False))
-    kernels.reset_launches()
+    cuda_lib.LAUNCHES.reset()
     f = p_sift.detect_and_describe(torch.from_numpy(frames), cfg)
     assert calls == {"k1_plain": 3, "k2": 0}  # one plain K1 per octave on a CPU tensor
-    assert kernels.LAUNCHES == {"extrema_scores": 0, "bin_maps": 0, "pose_refine": 0, "gauss_blur": 0}  # nothing was launched on the CPU
+    assert {"extrema_scores", "bin_maps", "gauss_blur"} <= set(cuda_lib.LAUNCHES)
+    assert cuda_lib.LAUNCHES == dict.fromkeys(cuda_lib.LAUNCHES, 0)  # nothing was launched on the CPU
     assert int(f.mask.sum()) > 100 and torch.isfinite(f.desc).all()

@@ -1,11 +1,13 @@
-"""Times the two hand-written kernels over one detection call, for several builds side by side on one card.
+"""Times K1 and K2, the front-end's hand-written kernels, over one detection call, for several builds side by side on one card.
 
     python tools/bench_torch_kernels.py [--subject NAME=PACKAGE_DIR[:CSRC_DIR] ...] [--rounds 3]
 
-A subject is a copy of ``vo_tpu_torch/frontend/kernels.py`` (taken from
-PACKAGE_DIR, default this tree's ``vo_tpu_torch``) building the CUDA sources of
-CSRC_DIR (default PACKAGE_DIR/csrc). So one call compares this tree with
-another commit unpacked beside it, or with a variant of a source:
+A subject is the package at PACKAGE_DIR (default this tree's ``vo_tpu_torch``),
+loaded under a name of its own, whose kernels module (``frontend/kernels.py``)
+builds the CUDA sources of CSRC_DIR (default PACKAGE_DIR/csrc). So one call
+compares this tree with another commit unpacked beside it, of this layout or
+of the older one where ``frontend/kernels.py`` built the library itself, or
+with a variant of a source:
 
     git archive <commit> vo_tpu_torch | tar -x -C build/parent
     python tools/bench_torch_kernels.py --subject parent=build/parent/vo_tpu_torch --subject change=vo_tpu_torch
@@ -30,6 +32,7 @@ the JSON goes to chiprun_out/bench_torch_kernels.json.
 from __future__ import annotations
 
 import argparse
+import importlib
 import importlib.util
 import json
 import os
@@ -53,14 +56,17 @@ from vo_tpu_torch.odometry import runner  # noqa: E402
 
 
 def load_subject(name: str, spec: str):
-    """The kernels module of PACKAGE_DIR[:CSRC_DIR], as a module of its own."""
+    """The kernels module of PACKAGE_DIR[:CSRC_DIR], from that package loaded as ``bench_pkg_<name>``."""
     pkg, _, csrc = spec.partition(":")
-    path = Path(pkg).resolve() / "frontend" / "kernels.py"
-    mod_spec = importlib.util.spec_from_file_location(f"bench_kernels_{name}", path)
-    mod = importlib.util.module_from_spec(mod_spec)
-    mod_spec.loader.exec_module(mod)
-    if csrc:
-        mod._CSRC = Path(csrc).resolve()
+    pkg_name = f"bench_pkg_{name}"
+    root = Path(pkg).resolve()
+    pkg_spec = importlib.util.spec_from_file_location(pkg_name, root / "__init__.py", submodule_search_locations=[str(root)])
+    sys.modules[pkg_name] = importlib.util.module_from_spec(pkg_spec)
+    pkg_spec.loader.exec_module(sys.modules[pkg_name])
+    mod = importlib.import_module(f"{pkg_name}.frontend.kernels")
+    if csrc:  # the library's builder: utils/cuda_lib.py, or in the older layout the kernels module itself
+        builder = mod if hasattr(mod, "_CSRC") else importlib.import_module(f"{pkg_name}.utils.cuda_lib")
+        builder._CSRC = Path(csrc).resolve()
     return mod
 
 

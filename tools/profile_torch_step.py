@@ -104,7 +104,8 @@ from vo_tpu_torch.frontend.pyramid import build_pyramid  # noqa: E402
 from vo_tpu_torch.frontend.sift import _octave_caps, detect_and_describe  # noqa: E402
 from vo_tpu_torch.io import synthetic  # noqa: E402
 from vo_tpu_torch.odometry import landmarks, pipeline, runner  # noqa: E402
-from vo_tpu_torch.utils import profiling  # noqa: E402
+from vo_tpu_torch.utils import cuda_lib, profiling  # noqa: E402
+from vo_tpu_torch.utils.profiling import union_ms  # noqa: E402
 
 
 # An eager meshed run is traced over its first frames only: the profiler's Python post-processing of
@@ -184,16 +185,6 @@ def frame_loop_trace(run, n_frames: int, trace_path: str | None = None):
         host_launch_calls_per_frame={k: v / n_frames for k, v in sorted(host.items())},
         kernel_ms_per_frame=by_name,
     )
-
-
-def union_ms(evs) -> float:
-    """Device busy ms: the union of the events' intervals (streams may overlap)."""
-    busy, end = 0.0, -float("inf")
-    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in evs):
-        if stop > end:
-            busy += stop - max(start, end)
-            end = stop
-    return busy / 1000.0
 
 
 def host_times(fn, reps: int):
@@ -327,9 +318,9 @@ def profile_exact(cfg: PipelineConfig, dev, card: str, reps: int) -> int:
         fn = lambda: detect_and_describe(imgs, sift)  # noqa: E731
         fn()  # warm
         torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launches()
+        cuda_lib.LAUNCHES.reset()
         fn()
-        hand = dict(kernels.LAUNCHES)
+        hand = dict(cuda_lib.LAUNCHES)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
         enq, wall = host_times(fn, reps)
@@ -393,7 +384,7 @@ def mesh_rank(mesh, device, frames_path: str, gt_poses, use_ba: bool, graph, rep
     ms = sorted(r.per_frame_ms for r in timed)
     res = timed[-1]
     n_traced = n if graph is None else min(n, EAGER_TRACE_FRAMES)
-    mesh_mod.reset_collectives()
+    mesh_mod.COLLECTIVES.reset()
     with tempfile.TemporaryDirectory() as tmp:
         # Which host call launched each NCCL kernel, read from the chrome trace of a graphed run (an
         # eager run's trace, thousands of launches a frame, is not written).

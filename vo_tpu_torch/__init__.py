@@ -2,9 +2,10 @@
 
 A module-for-module port of the JAX package ``vo_tpu`` (which stays the
 reference): same layout and names, PyTorch idiom inside. The two Pallas TPU
-kernels of the front-end are hand-written CUDA C++ for Hopper (``csrc/``),
-built with ``nvcc`` at first use (``frontend/kernels.py``), beside the tracer's one-thread
-stage stamp (``csrc/stage_stamp.cu``, ``utils/profiling.py``).
+kernels of the front-end (K1, K2), the pyramid's blurs (K4), RANSAC's consensus
+refinement (K3) and the tracer's stage stamp are hand-written CUDA C++ for
+Hopper (``csrc/``), built with ``nvcc`` at first use into one library and
+launched and counted through ``utils/cuda_lib.py``.
 
 Ported: ``odometry.runner.run_sequence`` on the plain path and on the refined
 path (window BA + loop closure through the background refiner), with
@@ -33,7 +34,8 @@ Subpackages:
   dist      device mesh and rank launcher, sharded RANSAC / window BA / pose graph / detection, smoke and harness
   slam      loop closure
   eval      trajectory metrics
-  utils     fixed-capacity padding/masking, non-waiting host/device copies, the default device, scoped matmul precision,
+  utils     the CUDA library (build, bind, launch, count), fixed-capacity padding/masking, non-waiting host/device
+            copies, the default device, scoped matmul precision,
             profiling (the tracer: spans and device stage stamps; metrics JSONL, torch.profiler trace),
             debugging (non-finite trap, launch counts)
   viz       the reference's four figures (matplotlib, imported only where drawn)

@@ -59,6 +59,9 @@ import time
 import numpy as np
 import torch
 
+from .utils.device import sync
+from .utils.profiling import union_ms
+
 CAMERA_HZ = 9.6  # KITTI capture rate (kitti/00/times.txt): the real-time bound
 N_FRAMES = 30
 N_LANDMARKS = 6000
@@ -186,17 +189,12 @@ def stage_frames(pre, device):
     return StagedSequence(pre, len(pre), device)
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def _time_stage(fn, device: torch.device, n_iter: int):
     """One warm call, then ``n_iter`` calls, each ended by a synchronise -> (medians {wall, enqueue,
     device (CUDA events) ms}, device busy ms and launches of one call under torch.profiler, last output)."""
     cuda = device.type == "cuda"
     out = fn()
-    _sync(device)
+    sync(device)
     wall, enq, dev = [], [], []
     for _ in range(n_iter):
         if cuda:
@@ -207,7 +205,7 @@ def _time_stage(fn, device: torch.device, n_iter: int):
         t1 = time.perf_counter()
         if cuda:
             b.record()
-        _sync(device)
+        sync(device)
         t2 = time.perf_counter()
         wall.append(1e3 * (t2 - t0))
         enq.append(1e3 * (t1 - t0))
@@ -225,15 +223,9 @@ def _device_events_in(events, mark: str):
     spans = [e.time_range for e in events if e.name == mark]
     half_gap_us = 5e5 * PROFILE_GAP_S
     lo, hi = min(r.start for r in spans) - half_gap_us, max(r.end for r in spans) + half_gap_us
-    evs = sorted((e.time_range.start, e.time_range.end) for e in events
-                 if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in _MARKS
-                 and lo <= e.time_range.start <= hi)
-    busy, end = 0.0, -float("inf")
-    for start, stop in evs:  # the union of the intervals: streams may overlap
-        if stop > end:
-            busy += stop - max(start, end)
-            end = stop
-    return busy / 1e3, len(evs)
+    evs = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in _MARKS
+           and lo <= e.time_range.start <= hi]
+    return union_ms(evs), len(evs)
 
 
 def _profile_call(fn, device: torch.device):
@@ -253,7 +245,7 @@ def _profile_call(fn, device: torch.device):
             for mark in _MARKS:
                 with record_function(mark):
                     fn()
-                    _sync(device)
+                    sync(device)
                 time.sleep(PROFILE_GAP_S)
         events = prof.events()
         (busy, a), (_, b) = (_device_events_in(events, mark) for mark in _MARKS[1:3])

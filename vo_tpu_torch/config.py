@@ -52,8 +52,8 @@ class SIFTConfig:
     # The port implements only this path (the Lowe-exact oracle path lives
     # in the JAX package).
     fast_descriptor: bool = True
-    # The hand-written kernels (frontend.kernels) for the extrema scores, the
-    # bin maps and the blurs of the pyramid and the maps; False takes their
+    # The hand-written kernels (K1, K2 and K4: frontend.kernels, pyramid,
+    # dense_desc) for the extrema scores, the bin maps and the blurs of the pyramid and the maps; False takes their
     # plain versions. The name is the JAX package's, whose kernels are Pallas.
     use_pallas: bool = True
 

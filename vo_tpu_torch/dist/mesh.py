@@ -23,16 +23,16 @@ rank slices its own rows (``shard_rows``).
 
 The collectives (``all_gather``, ``all_reduce_sum_``, and their packed forms,
 which put several tensors through ONE collective) count themselves in
-``COLLECTIVES``; one recorded into a CUDA graph counts in ``CAPTURED``
-instead, and the graph adds it to ``COLLECTIVES`` on each replay
-(utils.graphs), so a graphed run counts what the eager run counts. With NCCL
-they are enqueued on the current CUDA stream and the host does not wait, so a
-program whose collectives all go over NCCL is captured like any other
-(``collective_backends`` names what a program reduces over). With gloo on
-CUDA tensors they are staged explicitly: device -> pinned host buffer
-(utils.host_copy.HostCopy), the collective on the host, pinned upload back;
-that path WAITS for the current stream each time, the price of ranks that
-share a card.
+``COLLECTIVES`` (a utils.cuda_lib counter); one recorded into a CUDA graph
+counts in ``COLLECTIVES.captured`` instead, and the graph adds it back on
+each replay (utils.graphs), so a graphed run counts what the eager run
+counts. With NCCL they are enqueued on the current CUDA stream and the host
+does not wait, so a program whose collectives all go over NCCL is captured
+like any other (``collective_backends`` names what a program reduces over).
+With gloo on CUDA tensors they are staged explicitly: device -> pinned host
+buffer (utils.host_copy.HostCopy), the collective on the host, pinned upload
+back; that path WAITS for the current stream each time, the price of ranks
+that share a card.
 """
 from __future__ import annotations
 
@@ -52,27 +52,12 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..config import MeshConfig
+from ..utils.cuda_lib import Counts
 from ..utils.device import resolve
 from ..utils.host_copy import HostCopy, upload
 
 # Collectives issued by this process since the last reset, by kind.
-COLLECTIVES = {"all_gather": 0, "all_reduce": 0}
-# Collectives recorded into CUDA graphs (not run), by kind: utils.graphs reads them at capture.
-CAPTURED = {"all_gather": 0, "all_reduce": 0}
-
-
-def reset_collectives() -> None:
-    for k in COLLECTIVES:
-        COLLECTIVES[k] = 0
-
-
-def _capturing(t: torch.Tensor) -> bool:
-    """Whether a collective on ``t`` is being recorded into a CUDA graph rather than run."""
-    return t.device.type == "cuda" and torch.cuda.is_current_stream_capturing()
-
-
-def _count(kind: str, t: torch.Tensor) -> None:
-    (CAPTURED if _capturing(t) else COLLECTIVES)[kind] += 1
+COLLECTIVES = Counts("collectives", "all_gather", "all_reduce")
 
 
 def _default_backend(device: torch.device) -> str:
@@ -177,7 +162,7 @@ def _staged(group, t: torch.Tensor) -> bool:
 
 def all_gather(t: torch.Tensor, group) -> torch.Tensor:
     """[S, ...]: ``t`` of every rank of ``group``, in rank order."""
-    _count("all_gather", t)
+    COLLECTIVES.count("all_gather", t)
     with torch.profiler.record_function("vo_tpu_torch.dist.all_gather"):
         return _all_gather(t, group)
 
@@ -201,7 +186,7 @@ def _all_gather(t: torch.Tensor, group) -> torch.Tensor:
 
 def all_reduce_sum_(t: torch.Tensor, group) -> torch.Tensor:
     """Sum ``t`` over the ranks of ``group``, in place; every rank ends with the same bits."""
-    _count("all_reduce", t)
+    COLLECTIVES.count("all_reduce", t)
     with torch.profiler.record_function("vo_tpu_torch.dist.all_reduce"):
         return _all_reduce_sum_(t, group)
 

@@ -15,8 +15,9 @@ import math
 import numpy as np
 import torch
 
+from ..utils import cuda_lib
 from . import kernels
-from .pyramid import _const, blur_separable, gaussian_kernel_1d, tap_pointers
+from .pyramid import TAP_TYPES, _const, blur_separable, gaussian_kernel_1d, tap_pointers
 
 _NB = kernels.NB  # descriptor orientation bins
 _CELLS = 4  # 4x4 spatial cells
@@ -88,6 +89,11 @@ def row_jobs(shapes, n_levels: int) -> list:
 
 
 MAX_ROW_JOBS = 24  # kMaxJobs in csrc/gauss_blur.cu: octaves x levels of one launch
+# Per job: source, its batch stride, first row, H2, W2, level; then jobs, dst, its batch stride, B, L, the tap tables.
+_K4_ROWS = cuda_lib.Kernel("vo_gauss_rows", "gauss_blur", [
+    ctypes.POINTER(ctypes.c_void_p), *[ctypes.POINTER(ctypes.c_longlong)] * 2, *[ctypes.POINTER(ctypes.c_int)] * 3,
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, *TAP_TYPES,
+])
 
 
 def _bin_map_rows_k4(raws, sigma_rels) -> torch.Tensor:
@@ -106,20 +112,16 @@ def _bin_map_rows_k4(raws, sigma_rels) -> torch.Tensor:
         raise ValueError(f"gauss_blur: {len(jobs)} level maps in one launch (at most {MAX_ROW_JOBS}), {len(sigma_rels)} sigmas")
     dst = torch.empty((B, sum(L * h * w for h, w in shapes), _NB), dtype=torch.float32, device=raws[0].device)
     srcs = [raws[o].data_ptr() + 4 * l * _NB * shapes[o][0] * shapes[o][1] for o, l, _ in jobs]
-    with torch.cuda.device(dst.device):
-        err = kernels.load().vo_gauss_rows(
-            kernels._array(ctypes.c_void_p, srcs),
-            kernels._array(ctypes.c_longlong, [raws[o].stride(0) for o, _, _ in jobs]),
-            kernels._array(ctypes.c_longlong, [row for _, _, row in jobs]),
-            kernels._array(ctypes.c_int, [shapes[o][0] for o, _, _ in jobs]),
-            kernels._array(ctypes.c_int, [shapes[o][1] for o, _, _ in jobs]),
-            kernels._array(ctypes.c_int, [l for _, l, _ in jobs]),
-            len(jobs), dst.data_ptr(), dst.stride(0), B, L,
-            *tap_pointers(tuple(_map_kernel(s) for s in sigma_rels[:L])),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    kernels.raise_on(err, "gauss_blur")
-    kernels.count_launch("gauss_blur")
+    _K4_ROWS.launch(
+        dst, cuda_lib.array(ctypes.c_void_p, srcs),
+        cuda_lib.array(ctypes.c_longlong, [raws[o].stride(0) for o, _, _ in jobs]),
+        cuda_lib.array(ctypes.c_longlong, [row for _, _, row in jobs]),
+        cuda_lib.array(ctypes.c_int, [shapes[o][0] for o, _, _ in jobs]),
+        cuda_lib.array(ctypes.c_int, [shapes[o][1] for o, _, _ in jobs]),
+        cuda_lib.array(ctypes.c_int, [l for _, l, _ in jobs]),
+        len(jobs), dst.data_ptr(), dst.stride(0), B, L,
+        *tap_pointers(tuple(_map_kernel(s) for s in sigma_rels[:L])),
+    )
     return dst
 
 

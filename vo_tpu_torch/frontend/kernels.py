@@ -1,158 +1,35 @@
-"""The port's hand-written CUDA kernels: build, bind, and the front-end's wrappers and plain versions.
+"""The front-end's hand-written CUDA kernels: K1 and K2's wrappers and plain versions.
 
 K1 ``extrema_scores`` replaces vo_tpu/frontend/pallas_kernels.py::extrema_scores_pallas;
-K2 ``bin_maps`` replaces vo_tpu/frontend/pallas_kernels.py::bin_maps_pallas. K3
-``pose_refine`` (RANSAC-P3P's consensus refinement) replaces no TPU kernel; its wrapper
-and plain version live with the rest of RANSAC in pose/ransac.py. Nor does K4
-``gauss_blur`` (the detector's separable Gaussian blurs, which the JAX package leaves to
-XLA as band-matrix products); its wrappers and plain versions live with the pyramid
-(pyramid.gauss_stack) and the descriptor maps (dense_desc.bin_map_rows). Their sources are
-``vo_tpu_torch/csrc/*.cu`` (CUDA C++ for sm_90a; each file notes what bounds its
-kernel). At first use the sources are compiled with ``nvcc`` into one shared library
-under ``build/vo_tpu_torch/`` (named by a hash of the sources and flags, so an edit
-rebuilds) and bound with ``ctypes``. The same library carries the tracer's one-thread
-stage stamp (``csrc/stage_stamp.cu``, wrapped by ``utils.profiling.write_stamp``), which
-counts apart.
+K2 ``bin_maps`` replaces vo_tpu/frontend/pallas_kernels.py::bin_maps_pallas. Their sources
+are ``csrc/extrema_scores.cu`` and ``csrc/bin_maps.cu``, built, bound, launched and counted
+(``cuda_lib.LAUNCHES``) through utils.cuda_lib, as are the library's other kernels, whose
+wrappers live where they are used: K3 ``pose_refine`` in pose/ransac.py, K4 ``gauss_blur``
+in pyramid.py and dense_desc.py, the tracer's stage stamp in utils/profiling.py.
 
-K1 and K2 take every octave of a detection call in ONE launch
-(``extrema_scores_octaves``, ``bin_maps_octaves``); the one-octave wrappers
-(``extrema_scores``, ``bin_maps``) launch the same kernels on a list of one.
-Each wrapper takes its plain PyTorch version only for tensors on the CPU; for
-CUDA tensors it launches the kernel on the current stream or raises. ``LAUNCHES``
-counts the launches of each kernel (a call over several octaves is one launch).
-A call made while the current stream is being captured into a CUDA graph
-enqueues nothing: it is counted in ``CAPTURED`` instead, and the graph adds
-what it captured to ``LAUNCHES`` each time it is replayed (utils.graphs).
+K1 and K2 take every octave of a detection call in ONE launch (``extrema_scores_octaves``,
+``bin_maps_octaves``); the one-octave wrappers (``extrema_scores``, ``bin_maps``) launch the
+same kernels on a list of one. CPU tensors take the plain versions.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vo_tpu_torch"
-# Compile flags of each source; the objects are then linked with -shared. --split-compile=0 lets nvcc
-# optimise on every core: K4's unrolled passes take most of the build.
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--split-compile=0", "-Xcompiler", "-fPIC"]
+from ..utils import cuda_lib
 
 NB = 8  # orientation bins of the dense descriptor maps
 MAX_OCTAVES = 8  # octaves one launch takes (kMaxOctaves in csrc/*.cu)
 
-# Kernel launches since the last reset_launches(), by wrapper name.
-LAUNCHES = {"extrema_scores": 0, "bin_maps": 0, "pose_refine": 0, "gauss_blur": 0}
-# Calls recorded into a CUDA graph under capture (never reset: utils.graphs reads the difference).
-CAPTURED = {"extrema_scores": 0, "bin_maps": 0, "pose_refine": 0, "gauss_blur": 0}
-
-_lib = None
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _nvcc() -> str:
-    for cand in (
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-        shutil.which("nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH to build vo_tpu_torch/csrc")
-
-
-def library_path() -> Path:
-    """Where the shared library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(_CSRC.glob("*.cu")):
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libvo_kernels_{h.hexdigest()[:16]}.so"
-
-
-def build() -> Path:
-    """Compile csrc/*.cu with nvcc unless the library for these sources already exists: every source at
-    once, each in a process of its own, then one link."""
-    out = library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=out.parent) as work:
-        srcs = sorted(_CSRC.glob("*.cu"))
-        objs = [os.path.join(work, f"{src.stem}.o") for src in srcs]
-        procs = [
-            subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(src)], stdout=subprocess.PIPE,
-                             stderr=subprocess.STDOUT, text=True)
-            for src, obj in zip(srcs, objs)
-        ]
-        failed = [(src.name, p.returncode, log) for src, p in zip(srcs, procs) for log in [p.communicate()[0]]
-                  if p.returncode != 0]
-        if failed:
-            raise RuntimeError("nvcc failed:\n" + "\n".join(f"{name} ({rc}):\n{log}" for name, rc, log in failed))
-        tmp = os.path.join(work, out.name)
-        proc = subprocess.run([_nvcc(), "-shared", "-o", tmp, *objs], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc -shared failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
-    return out
-
-
-def load() -> ctypes.CDLL:
-    """Build if needed, then bind the kernels' C entry points (once per process)."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        ptrs = ctypes.POINTER(ctypes.c_void_p)
-        ints = ctypes.POINTER(ctypes.c_int)
-        longs = ctypes.POINTER(ctypes.c_longlong)
-        lib.vo_extrema_scores.argtypes = [
-            ptrs, ptrs, ints, ints, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
-        lib.vo_extrema_scores.restype = ctypes.c_int
-        lib.vo_bin_maps.argtypes = [
-            ptrs, ptrs, longs, longs, longs, ints, ints, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.vo_bin_maps.restype = ctypes.c_int
-        # K3 (csrc/pose_refine.cu; wrapper pose.ransac._finalize_f32): six inputs, n, fu, fv, cu, cv,
-        # thr2, huber, iters, min_points, five outputs, the stream.
-        lib.vo_pose_refine.argtypes = [
-            *[ctypes.c_void_p] * 6, ctypes.c_int, *[ctypes.c_float] * 6, ctypes.c_int, ctypes.c_int,
-            *[ctypes.c_void_p] * 6,
-        ]
-        lib.vo_pose_refine.restype = ctypes.c_int
-        # K4 (csrc/gauss_blur.cu; wrappers pyramid.gauss_stack, dense_desc.bin_map_rows). Both end with
-        # the tap tables (radii, taps, lo, hi, tot) and the stream.
-        floats = ctypes.POINTER(ctypes.c_float)
-        taps = [ints, floats, floats, floats, floats, ctypes.c_void_p]
-        lib.vo_gauss_stack.argtypes = [
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, *[ctypes.c_int] * 3, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, *taps,
-        ]
-        lib.vo_gauss_stack.restype = ctypes.c_int
-        lib.vo_gauss_rows.argtypes = [
-            ptrs, longs, longs, ints, ints, ints, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_int, *taps,
-        ]
-        lib.vo_gauss_rows.restype = ctypes.c_int
-        # The tracer's stage stamp (csrc/stage_stamp.cu; wrapper utils.profiling.write_stamp).
-        lib.vo_stage_stamp.argtypes = [ctypes.c_void_p, ctypes.c_void_p, *[ctypes.c_int] * 4, ctypes.c_void_p]
-        lib.vo_stage_stamp.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
-def _array(ctype, values):
-    return (ctype * len(values))(*values)
+_PTRS, _INTS, _LONGS = (ctypes.POINTER(t) for t in (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong))
+# Per octave: inputs, outputs, H, W; then octaves, B, L, thr/2, border.
+_K1 = cuda_lib.Kernel("vo_extrema_scores", "extrema_scores",
+                      [_PTRS, _PTRS, _INTS, _INTS, *[ctypes.c_int] * 3, ctypes.c_float, ctypes.c_int])
+# Per octave: inputs, outputs, the three outer strides, H, W; then octaves, B, L.
+_K2 = cuda_lib.Kernel("vo_bin_maps", "bin_maps", [_PTRS, _PTRS, *[_LONGS] * 3, _INTS, _INTS, *[ctypes.c_int] * 3])
 
 
 def _check_octaves(xs, name: str, contiguous: bool) -> None:
@@ -183,16 +60,6 @@ def _empty_octaves(shapes, device) -> list:
     sizes = [math.prod(shape) for shape in shapes]
     flat = torch.empty(sum(sizes), dtype=torch.float32, device=device)
     return [part.view(shape) for part, shape in zip(flat.split(sizes), shapes)]
-
-
-def raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed with cudaError_t {err}")
-
-
-def count_launch(name: str) -> None:
-    """One launch of ``name``'s kernel, or one call recorded into a graph under capture."""
-    (CAPTURED if torch.cuda.is_current_stream_capturing() else LAUNCHES)[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -229,17 +96,13 @@ def extrema_scores_octaves(dogs, thr: float, border: int = 5) -> list:
         raise ValueError(f"extrema_scores: need B >= 1, L >= 3 levels and border >= 0, got {tuple(dogs[0].shape)}, {border}")
     shapes = [(B, L - 2, d.shape[2], d.shape[3]) for d in dogs]
     outs = _empty_octaves(shapes, dogs[0].device)
-    with torch.cuda.device(dogs[0].device):
-        err = load().vo_extrema_scores(
-            _array(ctypes.c_void_p, [d.data_ptr() for d in dogs]),
-            _array(ctypes.c_void_p, [o.data_ptr() for o in outs]),
-            _array(ctypes.c_int, [d.shape[2] for d in dogs]),
-            _array(ctypes.c_int, [d.shape[3] for d in dogs]),
-            len(dogs), B, L, 0.5 * thr, border,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    raise_on(err, "extrema_scores")
-    count_launch("extrema_scores")
+    _K1.launch(
+        dogs[0], cuda_lib.array(ctypes.c_void_p, [d.data_ptr() for d in dogs]),
+        cuda_lib.array(ctypes.c_void_p, [o.data_ptr() for o in outs]),
+        cuda_lib.array(ctypes.c_int, [d.shape[2] for d in dogs]),
+        cuda_lib.array(ctypes.c_int, [d.shape[3] for d in dogs]),
+        len(dogs), B, L, 0.5 * thr, border,
+    )
     return outs
 
 
@@ -300,18 +163,14 @@ def bin_maps_octaves(levels) -> list:
         raise ValueError(f"bin_maps: need B, L >= 1 and H, W >= 2, got {[tuple(g.shape) for g in levels]}")
     shapes = [(B, L, NB, g.shape[2] // 2, g.shape[3] // 2) for g in levels]
     outs = _empty_octaves(shapes, levels[0].device)
-    with torch.cuda.device(levels[0].device):
-        err = load().vo_bin_maps(
-            _array(ctypes.c_void_p, [g.data_ptr() for g in levels]),
-            _array(ctypes.c_void_p, [o.data_ptr() for o in outs]),
-            *(_array(ctypes.c_longlong, [g.stride(d) for g in levels]) for d in (0, 1, 2)),
-            _array(ctypes.c_int, [g.shape[2] for g in levels]),
-            _array(ctypes.c_int, [g.shape[3] for g in levels]),
-            len(levels), B, L,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    raise_on(err, "bin_maps")
-    count_launch("bin_maps")
+    _K2.launch(
+        levels[0], cuda_lib.array(ctypes.c_void_p, [g.data_ptr() for g in levels]),
+        cuda_lib.array(ctypes.c_void_p, [o.data_ptr() for o in outs]),
+        *(cuda_lib.array(ctypes.c_longlong, [g.stride(d) for g in levels]) for d in (0, 1, 2)),
+        cuda_lib.array(ctypes.c_int, [g.shape[2] for g in levels]),
+        cuda_lib.array(ctypes.c_int, [g.shape[3] for g in levels]),
+        len(levels), B, L,
+    )
     return outs
 
 

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..config import SIFTConfig
-from . import kernels
+from ..utils import cuda_lib
 
 
 def gaussian_kernel_1d(sigma: float, radius: int | None = None) -> np.ndarray:
@@ -204,6 +204,15 @@ def tap_arrays(kernels_1d) -> tuple:
     return hit
 
 
+# The tap tables' ctypes types, as both K4 entry points end with them: radii, taps, lo, hi, tot.
+TAP_TYPES = [ctypes.POINTER(ctypes.c_int), *[ctypes.POINTER(ctypes.c_float)] * 4]
+# src, its two strides, the step, Ho, Wo, G, D, B, L, the tap tables.
+_K4_STACK = cuda_lib.Kernel("vo_gauss_stack", "gauss_blur", [
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, *[ctypes.c_int] * 3, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, *TAP_TYPES,
+])
+
+
 def tap_pointers(kernels_1d) -> list:
     """tap_arrays as the ctypes pointers the kernel's entry points take (the arrays stay cached)."""
     radii, *floats = tap_arrays(kernels_1d)
@@ -232,14 +241,10 @@ def gauss_stack(src: torch.Tensor, kernels_1d, decimate: bool, dog: bool) -> tup
     Ho, Wo = ((H + 1) // 2, (W + 1) // 2) if decimate else (H, W)
     G = torch.empty((B, L, Ho, Wo), dtype=torch.float32, device=src.device)
     D = torch.empty((B, L - 1, Ho, Wo), dtype=torch.float32, device=src.device) if dog else None
-    with torch.cuda.device(src.device):
-        err = kernels.load().vo_gauss_stack(
-            src.data_ptr(), src.stride(0), src.stride(1), 2 if decimate else 1, Ho, Wo, G.data_ptr(),
-            None if D is None else D.data_ptr(), B, L, *tap_pointers(kernels_1d),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    kernels.raise_on(err, "gauss_blur")
-    kernels.count_launch("gauss_blur")
+    _K4_STACK.launch(
+        src, src.data_ptr(), src.stride(0), src.stride(1), 2 if decimate else 1, Ho, Wo, G.data_ptr(),
+        None if D is None else D.data_ptr(), B, L, *tap_pointers(kernels_1d),
+    )
     return G, D
 
 

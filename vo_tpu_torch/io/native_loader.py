@@ -23,7 +23,7 @@ from pathlib import Path
 
 import numpy as np
 
-from ..frontend.kernels import BUILD_DIR
+from ..utils.cuda_lib import BUILD_DIR
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "loader.cpp"
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-pthread", "-shared"]

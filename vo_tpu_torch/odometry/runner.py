@@ -96,7 +96,7 @@ from ..dist.mesh import collective_backends
 from ..frontend.match import match
 from ..frontend.track import StereoFeatures
 from ..utils import graphs
-from ..utils.device import resolve
+from ..utils.device import resolve, sync
 from ..utils.host_copy import HostCopy, upload
 from ..utils.precision import matmul_precision
 from ..utils.profiling import MetricsLog, StageStamps, Trace, call_tracing, pretty_frame, span
@@ -172,11 +172,6 @@ class StagedSequence:
 
     def frame(self, i: int):
         return self.frames[i]
-
-
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 class _Keyframes:
@@ -461,7 +456,7 @@ def run_sequence(
                 run_group(init_state(cfg, seed, device), w_map, [l0, r0] * group)
             if group == 1 or (n - start_frame) % group != 0:
                 run_group(init_state(cfg, seed, device), w_map, [l0, r0])
-            _sync(device)
+            sync(device)
             del w_map
 
         refiner = kfs = None
@@ -577,7 +572,7 @@ def run_sequence(
                 i += g
         t_loop = time.perf_counter()
         phase.enter_context(span(READBACK))
-        _sync(device)
+        sync(device)
         wall = time.perf_counter() - t0
         if mlog is not None:
             mlog.close()

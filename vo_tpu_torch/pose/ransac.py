@@ -19,15 +19,16 @@ Nothing here reads a value back to the host.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple
 
 import torch
 
 from ..config import RansacConfig
-from ..frontend import kernels
 from ..geom import se3
 from ..geom.camera import StereoCalib
+from ..utils import cuda_lib
 from ..utils.padding import take
 from ..utils.precision import matmul_precision
 from .p3p import p3p_grunert
@@ -134,6 +135,11 @@ def finalize_pose(R_best, t_best, any_valid, px2d, pts3d, mask, calib: StereoCal
     return _finalize_f32(R_best, t_best, any_valid, px2d, pts3d, mask, calib, cfg)
 
 
+# K3 (csrc/pose_refine.cu): six inputs, n, fu, fv, cu, cv, thr2, huber, iters, min_points, five outputs.
+_K3 = cuda_lib.Kernel("vo_pose_refine", "pose_refine",
+                      [*[ctypes.c_void_p] * 6, ctypes.c_int, *[ctypes.c_float] * 6, *[ctypes.c_int] * 2, *[ctypes.c_void_p] * 5])
+
+
 def _finalize_f32(R_best, t_best, any_valid, px2d, pts3d, mask, calib: StereoCalib, cfg: RansacConfig) -> PoseEstimate:
     """Refine the winning hypothesis on its consensus set and package the result: the plain
     version on the CPU, one launch of K3 on the current stream for CUDA tensors."""
@@ -160,16 +166,12 @@ def _finalize_f32(R_best, t_best, any_valid, px2d, pts3d, mask, calib: StereoCal
     n_in = torch.empty((), dtype=torch.int64, device=dev)
     ok = torch.empty((), dtype=torch.bool, device=dev)
     mean_err = torch.empty((), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = kernels.load().vo_pose_refine(
-            *(x.data_ptr() for x, _, _ in expected),
-            n, calib.fu, calib.fv, calib.cu, calib.cv, cfg.max_reproj_err_px**2, HUBER_PX, cfg.refine_iters,
-            cfg.min_points,
-            *(x.data_ptr() for x in (pose, inliers, n_in, ok, mean_err)),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    kernels.raise_on(err, "pose_refine")
-    kernels.count_launch("pose_refine")
+    _K3.launch(
+        px2d, *(x.data_ptr() for x, _, _ in expected),
+        n, calib.fu, calib.fv, calib.cu, calib.cv, cfg.max_reproj_err_px**2, HUBER_PX, cfg.refine_iters,
+        cfg.min_points,
+        *(x.data_ptr() for x in (pose, inliers, n_in, ok, mean_err)),
+    )
     return PoseEstimate(pose_c2w=pose, inliers=inliers, n_inliers=n_in, ok=ok, mean_err=mean_err)
 
 

@@ -13,7 +13,7 @@ The port's step is eager tensor code, so the counterparts are:
   graph.)
 - ``compile_logging``: eager code has no retracing to catch; what creeps into a
   frame loop unnoticed is extra kernel launches. The context counts them: the
-  hand-written kernels through ``frontend.kernels.LAUNCHES``, and every device
+  hand-written kernels through ``utils.cuda_lib.LAUNCHES``, and every device
   kernel through ``torch.profiler`` where a CUDA card is present.
 - ``check_determinism``: the same contract as the reference's, on tensors.
 """
@@ -24,6 +24,8 @@ import threading
 
 import numpy as np
 import torch
+
+from . import cuda_lib
 
 _state = threading.local()
 
@@ -91,10 +93,8 @@ class LaunchLog:
 @contextlib.contextmanager
 def compile_logging():
     """Count the kernel launches made inside the block -> LaunchLog (filled when the block ends)."""
-    from ..frontend import kernels
-
     log = LaunchLog()
-    before = dict(kernels.LAUNCHES)
+    before = dict(cuda_lib.LAUNCHES)
     prof = None
     if torch.cuda.is_available():
         from torch.profiler import ProfilerActivity, profile
@@ -104,7 +104,7 @@ def compile_logging():
     try:
         yield log
     finally:
-        log.hand_written = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        log.hand_written = {k: n - before.get(k, 0) for k, n in cuda_lib.LAUNCHES.items()}
         if prof is not None:
             torch.cuda.synchronize()
             prof.__exit__(None, None, None)

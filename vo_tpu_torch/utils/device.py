@@ -1,4 +1,4 @@
-"""The device an entry point runs on when its caller names none: the CUDA card."""
+"""The device an entry point runs on when its caller names none (the CUDA card), and waiting for it."""
 from __future__ import annotations
 
 import torch
@@ -17,3 +17,9 @@ def default_device() -> torch.device:
 def resolve(device) -> torch.device:
     """``device`` as a torch.device; None means default_device()."""
     return default_device() if device is None else torch.device(device)
+
+
+def sync(device) -> None:
+    """Wait for ``device``'s work: a no-op on the CPU."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)

@@ -29,11 +29,9 @@ step. This module owns the mechanics:
   A ``StaticCall`` made without a pool gets one of its own: the refiner's
   programs replay on its thread, the keyframe programs on the frame loop's,
   each in an order of its own, interleaved with the steps.
-- Launch accounting: a hand-written kernel's wrapper that runs under capture
-  counts the call in ``frontend.kernels.CAPTURED``, a collective of the mesh
-  in ``dist.mesh.CAPTURED``; the graph keeps how many it captured of each and
-  adds them to ``kernels.LAUNCHES`` and ``dist.mesh.COLLECTIVES`` on each
-  replay, so a graphed run counts what the eager run counts.
+- Launch accounting: the graph keeps the calls that utils.cuda_lib's counters
+  (kernel launches, the mesh's collectives) counted as captured, and adds them
+  to the counters on each replay.
 - ``PROGRAMS``: captures, replays and capture seconds of every graph, by
   program name: each ``StaticCall``'s and each ``StaticStep``'s (the runner's
   ``group_step`` and ``frame_step``, named by odometry.pipeline's factories);
@@ -56,8 +54,7 @@ from collections import defaultdict
 
 import torch
 
-from ..dist import mesh as mesh_mod
-from ..frontend import kernels
+from . import cuda_lib
 from .debug import nan_checks_enabled
 
 WARMUP_RUNS = 1  # eager runs on the side stream before capture
@@ -114,18 +111,16 @@ def pools_bytes() -> int:
 class Captured:
     """A recorded step: ``replay()`` launches it and returns its static outputs."""
 
-    def __init__(self, graph: torch.cuda.CUDAGraph, outputs, launches: dict, collectives: dict | None = None):
+    def __init__(self, graph: torch.cuda.CUDAGraph, outputs, counted: dict):
         self.graph = graph
         self.outputs = outputs
-        self.launches = launches  # hand-written kernel launches inside the graph, by wrapper name
-        self.collectives = collectives or {}  # mesh collectives inside the graph, by kind
+        self.counted = counted  # calls counted inside the graph: {counter name: {key: n}} (cuda_lib.captured)
 
     def replay(self):
         self.graph.replay()
-        for k, v in self.launches.items():
-            kernels.LAUNCHES[k] += v
-        for k, v in self.collectives.items():
-            mesh_mod.COLLECTIVES[k] += v
+        for name, calls in self.counted.items():
+            for k, n in calls.items():
+                cuda_lib.COUNTS[name][k] += n
         return self.outputs
 
 
@@ -152,15 +147,13 @@ def capture(body, device, pool: Pool | None = None, generators=()) -> Captured:
     for gen in generators:
         graph.register_generator_state(gen)
     before = [gen.get_state() for gen in generators]
-    launches, collectives = dict(kernels.CAPTURED), dict(mesh_mod.CAPTURED)
+    counted = cuda_lib.captured()
     with torch.cuda.graph(graph, pool=pool.handle, stream=pool.stream, capture_error_mode="thread_local"):
         outputs = body()
     for gen, state in zip(generators, before):
         if not torch.equal(gen.get_state(), state):
             raise RuntimeError("the capture moved a registered generator's stream: a replay would draw other samples")
-    launches = {k: kernels.CAPTURED[k] - v for k, v in launches.items()}
-    collectives = {k: mesh_mod.CAPTURED[k] - v for k, v in collectives.items()}
-    return Captured(graph, outputs, launches, collectives)
+    return Captured(graph, outputs, cuda_lib.captured(since=counted))
 
 
 def static_copy(tree):

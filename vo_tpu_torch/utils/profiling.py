@@ -14,8 +14,8 @@ The tracer, the port's one tracing system (off unless turned on):
   records, one of the call's own; else None. So a call made under the profiler is traced.
 - ``StageStamps``: the device's clock at the stage boundaries of the graphed step, one row per
   replay in a ring on the device (``write_stamp``: on a card a one-thread kernel,
-  ``csrc/stage_stamp.cu``, reading ``%globaltimer``; on the CPU ``perf_counter_ns``), read
-  once after the loop.
+  ``csrc/stage_stamp.cu``, reading ``%globaltimer``, counted in ``cuda_lib.LAUNCHES["stage_stamp"]``;
+  on the CPU ``perf_counter_ns``), read once after the loop.
 - ``Trace``: what one traced ``run_sequence`` call returns (``RunResult.trace``).
 
 The clocks. Spans are read on ``time.perf_counter_ns``. One ``(perf_counter_ns, time_ns)`` pair,
@@ -31,6 +31,7 @@ Also:
 - ``MetricsLog``   — per-frame structured JSONL (inlier ratio, track count, ms/frame).
 - ``trace``        — the tracer on under ``torch.profiler``, and a Chrome trace written (host and,
   where there is a card, device activity).
+- ``union_ms``     — device busy time from a profiler's events: the union of their intervals.
 - ``pretty_frame`` — the reference's console block (frame #, distance step, velocity km/h, pose
   translation) for parity.
 
@@ -40,6 +41,7 @@ module would import its package, and with it jax.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import json
 import os
@@ -50,14 +52,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..frontend import kernels
+from . import cuda_lib
+from .device import sync
 
 _tracer: Optional["Tracer"] = None  # the active tracer; None: off
 
 STAMP_KERNEL = "stage_stamp_kernel"  # the stamp's kernel, as a trace names it
 ANCHOR_TRIES = 8  # stamps a clock anchor takes; the one the host brackets most narrowly counts
-# Stamp writes: kernels enqueued on a card, and launches recorded into a CUDA graph under capture.
-STAMPS = {"launched": 0, "captured": 0}
+# csrc/stage_stamp.cu: buf, row, rows, width, col, advance.
+_STAMP = cuda_lib.Kernel("vo_stage_stamp", "stage_stamp", [ctypes.c_void_p, ctypes.c_void_p, *[ctypes.c_int] * 4])
 
 
 class _Noop:
@@ -194,19 +197,7 @@ def write_stamp(buf: torch.Tensor, row: torch.Tensor, col: int, advance: bool = 
         return
     if buf.dtype != torch.int64 or row.dtype != torch.int64 or not buf.is_contiguous() or buf.device != row.device:
         raise ValueError(f"write_stamp: expected contiguous int64 buf and row on one device, got {buf.dtype} {row.dtype}")
-    with torch.cuda.device(buf.device):
-        err = kernels.load().vo_stage_stamp(
-            buf.data_ptr(), row.data_ptr(), buf.shape[0], buf.shape[1], col, int(advance),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"stage_stamp kernel launch failed with cudaError_t {err}")
-    STAMPS["captured" if torch.cuda.is_current_stream_capturing() else "launched"] += 1
-
-
-def _sync(device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    _STAMP.launch(buf, buf.data_ptr(), row.data_ptr(), buf.shape[0], buf.shape[1], col, int(advance))
 
 
 class StageStamps:
@@ -238,10 +229,10 @@ class StageStamps:
     def _anchor(self) -> None:
         """A stamp between two synchronises, ``ANCHOR_TRIES`` times: the narrowest bracket is kept."""
         for _ in range(ANCHOR_TRIES):
-            _sync(self.device)
+            sync(self.device)
             h0 = time.perf_counter_ns()
             write_stamp(self._anchors, self._anchor_row, len(self._host))
-            _sync(self.device)
+            sync(self.device)
             self._host.append((h0, time.perf_counter_ns()))
 
     def start(self) -> None:
@@ -360,6 +351,16 @@ def trace(log_dir: str):
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def union_ms(events) -> float:
+    """Device busy ms: the union of the profiler events' intervals (``time_range``, us; streams may overlap)."""
+    busy, end = 0.0, -float("inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy / 1000.0
 
 
 def pretty_frame(frame_idx: int, rel_pose: np.ndarray, pose: np.ndarray, dt: float) -> str:
